@@ -1,0 +1,590 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--out DIR] [--profile]
+
+Phases (any failure exits non-zero and prints no result line):
+
+  1. device   name and power limit from nvidia-smi; build the stream
+              kernels from royaltracer_dx_tpu_torch/csrc/stream_trace.cu
+  2. kernels  each CUDA kernel against its plain PyTorch version on the
+              same inputs on the card -- (a) the menger accel with 1M
+              random rays, closest, and any-hit with half the lanes
+              masked; (b) a 262,144-triangle soup (128 blocks) with 64k
+              random rays (long worklists) and 64k coherent camera rays
+              (early exits) -- and against brute force on 64k rays.
+              Slots and occlusion must be equal (exact-t ties are
+              counted), t/u/v and the per-chunk stats bit-equal.
+  3. frames   RestirRenderer on the menger scene at 1920x1080 with the
+              default RenderConfig: one warm-up frame and 4 timed frames,
+              with the launch counters set to 0 just before and read just
+              after; then one more frame whose kernel launches are timed
+              with CUDA events.  Each kernel's output on the largest batch
+              that frame gave it is held against its plain version on the
+              same inputs, and both are timed there.  Last, two 96x54
+              menger frames on the card against the same frames on the
+              CPU (the plain versions, which the CPU tests hold against
+              the JAX package).
+  4. the {"kernels": [...]} line, then the {"ok": true, ...} line.
+
+--out DIR writes the rendered image there as a PNG.  --profile runs one
+more frame under torch.profiler and prints the device's busy time and
+its time by kernel name (with --out, also the gzipped Chrome trace).
+The script imports nothing of JAX: it runs the port alone.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import struct
+import subprocess
+import sys
+import time
+import zlib
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SOURCE = "royaltracer_dx_tpu_torch/csrc/stream_trace.cu"
+REPLACES = "royaltracer_dx_tpu/ops/stream_trace.py:514"
+KERNELS = {
+    "stream_closest": "_make_kernel(occlusion=False) via closest_hit_stream",
+    "stream_any": "_make_kernel(occlusion=True) via any_hit_stream",
+}
+# FP32 operations per Moller-Trumbore test and per ray x cluster-box slab
+# test, counted from the kernel's inner loops: adds, subtracts,
+# multiplies, the one division and the slab's min/max; compares and
+# selects are not counted
+MT_OPS = 46
+SLAB_OPS = 24
+# H100 device-memory rate (NVIDIA data sheet: SXM 3.35 TB/s, PCIe 2.0)
+HBM_SXM, HBM_PCIE = 3.35e12, 2.0e12
+# --profile: device time grouped by kernel-name substrings, first match
+PROFILE_KINDS = [
+    ("stream kernels", ("stream_kernel",)),
+    ("gathers and indexing", ("gather", "index", "Index")),
+    ("integer elementwise (TEA RNG, ids)", ("<long", "<int", "Bitwise",
+                                            "shift")),
+    ("copies, cat, fills", ("Copy", "copy", "Memcpy", "Memset", "fill")),
+    ("reductions", ("reduce",)),
+    ("sorts", ("sort", "Sort", "radix")),
+]
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", flush=True)
+    sys.exit(1)
+
+
+def nvidia_smi(query: str) -> str:
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 1) -> tuple[float, object]:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+# ------------------------------ phase 2 ----------------------------------
+
+
+def mismatch(name, k_out, p_out, lanes):
+    """Kernel outputs vs plain-version outputs on the same input: slots
+    (occlusion) equal except exact-t ties, t/u/v and stats bit-equal.
+    Fails on any difference; returns the counts."""
+    k_tuv, k_slot, k_stats = k_out
+    p_tuv, p_slot, p_stats = p_out
+    occ = name == "stream_any"
+    slot_diff = k_slot != p_slot
+    tie = torch.zeros_like(slot_diff)
+    if not occ:
+        tie = slot_diff & (k_tuv[:, 0] == p_tuv[:, 0])
+    bad_slot = int((slot_diff & ~tie).sum())
+    neq = (k_tuv != p_tuv)[~tie]
+    diff = (k_tuv - p_tuv).abs()[~tie][neq]
+    max_err = float(diff.max()) if diff.numel() else 0.0
+    bad_tuv = int(neq.any(dim=1).sum())
+    bad_stats = int((k_stats != p_stats).any(dim=1).sum())
+    if bad_slot or bad_tuv or bad_stats:
+        fail(f"{name}: {bad_slot} slot, {bad_tuv} t/u/v (largest difference "
+             f"{max_err!r}), {bad_stats} stats lanes differ from the plain "
+             "version")
+    return dict(slot=bad_slot, tuv=bad_tuv, ties=int(tie.sum()),
+                max_abs_err=max_err, lanes=lanes, stats=bad_stats)
+
+
+def compare_kernel(name, args):
+    """Launch the kernel and run its plain version on the same inputs
+    (rows, wl, went, cnt, blk_tris, blk_boxes).  Returns (mismatch counts,
+    kernel outputs)."""
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+
+    occ = name == "stream_any"
+    k_out = (st.stream_any if occ else st.stream_closest)(*args)
+    torch.cuda.synchronize()
+    p_out = st._stream_plain(*args, occ)
+    return mismatch(name, k_out, p_out, int(args[0].shape[0])), k_out
+
+
+def random_rays(n, lo, hi, seed, device):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return torch.as_tensor(o, device=device), torch.as_tensor(d, device=device)
+
+
+def camera_rays(side, dist, device):
+    """Pinhole rays from (0, 0, -dist) through a side x side grid that
+    spans [-0.9, 0.9]^2 at z = -1, ordered in 16 x 8 tiles so that each
+    128-ray chunk is a coherent bundle (as the renderer's rays are)."""
+    ty, tx, iy, ix = np.meshgrid(np.arange(side // 8), np.arange(side // 16),
+                                 np.arange(8), np.arange(16), indexing="ij")
+    px = ((tx * 16 + ix + 0.5) / side * 2.0 - 1.0) * 0.9
+    py = ((ty * 8 + iy + 0.5) / side * 2.0 - 1.0) * 0.9
+    d = np.stack([px.ravel(), py.ravel(),
+                  np.full(px.size, dist - 1.0)], 1).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = np.zeros_like(d)
+    o[:, 2] = -dist
+    return torch.as_tensor(o, device=device), torch.as_tensor(d, device=device)
+
+
+def kernel_case(label, accel, tri_verts, o, d, t_max_any, mismatches,
+                early_exit=False):
+    """Closest and masked any-hit through both kernels vs their plain
+    versions, and vs brute force on the first 64k rays.  ``early_exit``:
+    the rays are coherent bundles, and some chunk must stop before the
+    end of its worklist in each mode."""
+    from royaltracer_dx_tpu_torch.ops import intersect as it
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+
+    n = o.shape[0]
+    rows, wl, went, cnt = st.prepare_stream(o, d, accel, 1e-4, 1e4, 16)
+    mm, (tuv, slot, stats) = compare_kernel(
+        "stream_closest", (rows, wl, went, cnt, accel.blk_tris,
+                           accel.blk_boxes))
+    mismatches.setdefault("stream_closest", []).append(dict(mm, case=label))
+    exits = int((stats[:, 0] < cnt).sum())
+    print(f"  {label} closest: {n} rays, {mm['ties']} exact-t ties, blocks "
+          f"visited mean {float(stats[:, 0].float().mean()):.2f} of worklist "
+          f"mean {float(cnt.float().mean()):.2f}, clusters tested "
+          f"{int(stats[:, 1].sum())}, early exits {exits} of "
+          f"{cnt.shape[0]} chunks", flush=True)
+    half = torch.arange(n, device=o.device) % 2 == 0
+    t_max = torch.where(half, t_max_any, -1.0)
+    rows_a, wl_a, went_a, cnt_a = st.prepare_stream(o, d, accel, 1e-4, t_max,
+                                                    16)
+    mm_a, (_, slot_a, stats_a) = compare_kernel(
+        "stream_any", (rows_a, wl_a, went_a, cnt_a, accel.blk_tris,
+                       accel.blk_boxes))
+    mismatches.setdefault("stream_any", []).append(dict(mm_a, case=label))
+    exits_a = int((stats_a[:, 0] < cnt_a).sum())
+    if early_exit and not (exits and exits_a):
+        fail(f"{label}: coherent rays took no early exit (closest {exits}, "
+             f"any-hit {exits_a} chunks)")
+    occ = (slot_a[:n] >= 0) & (rows_a[:n, 7] > rows_a[:n, 6])
+    if occ[~half].any():
+        fail(f"{label}: a masked any-hit lane reads occluded")
+    # brute force on the first 64k rays: the same t and triangles (off
+    # exact-t ties) and the same occlusion; a hit within an ulp of a
+    # cluster box's face may fall to the slab test's rounding, so a few
+    # lanes in 10^4 may differ and are printed
+    m = min(n, 65536)
+    bh = it.closest_hit_brute(o[:m], d[:m], tri_verts, 1e-4, 1e4)
+    found = slot[:m] >= 0
+    k_t = torch.where(found, tuv[:m, 0], it.INF)
+    k_tri = torch.where(found, accel.perm[slot[:m].clamp_min(0).long()].long(),
+                        0)
+    t_diff = int((k_t != bh.t).sum())
+    tri_ties = int(((k_tri != bh.tri) & found & (k_t == bh.t)).sum())
+    bo = it.any_hit_brute(o[:m], d[:m], tri_verts, 1e-4, t_max[:m])
+    occ_diff = int((occ[:m] != bo).sum())
+    print(f"  {label} any-hit: {int(occ.sum())} of {n} occluded, early exits "
+          f"{exits_a} of {cnt_a.shape[0]} chunks; vs brute on {m} rays: "
+          f"{t_diff} t and {occ_diff} occlusion lanes differ, {tri_ties} "
+          "triangle ties", flush=True)
+    if t_diff + occ_diff > m // 10000:
+        fail(f"{label}: the kernels differ from brute force on "
+             f"{t_diff + occ_diff} of {m} lanes")
+
+
+def phase_kernels(dev, menger_arrays):
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+    from royaltracer_dx_tpu_torch.scene.procedural import random_tris
+
+    mismatches: dict = {}
+    acc = menger_arrays.stream
+    o, d = random_rays(1 << 20, -0.5, 1.5, 1, dev)
+    kernel_case("menger", acc, menger_arrays.tri_verts, o, d, 1.0, mismatches)
+    v, idx = random_tris(262144, seed=2)
+    tris = torch.as_tensor(v[idx], device=dev)
+    soup = st.build_stream_accel(tris)
+    if soup.num_blocks != 128:
+        fail(f"soup accel has {soup.num_blocks} blocks, expected 128")
+    o, d = random_rays(65536, -1.2, 1.2, 3, dev)
+    kernel_case("soup262k", soup, tris, o, d, 0.5, mismatches)
+    o, d = camera_rays(256, 3.0, dev)
+    kernel_case("soup262k-camera", soup, tris, o, d, 3.0, mismatches,
+                early_exit=True)
+    return mismatches
+
+
+# ------------------------------ phase 3 ----------------------------------
+
+
+def on_card(r) -> list:
+    """Names of renderer state tensors that do not live on the card."""
+    items = {f"last_di.{k}": v for k, v in r.last_di.items()}
+    items.update({f"last_gi.{k}": v for k, v in r.last_gi.items()})
+    items.update({f"last_sdata.{k}": v for k, v in r.last_sdata.items()})
+    items.update({"fb.accum": r.fb.accum, "fb.count": r.fb.count,
+                  "l1": r.l1, "prev_view": r._prev_view,
+                  "prev_proj": r._prev_proj,
+                  "tri_verts": r.scene_arrays.tri_verts,
+                  "blk_tris": r.scene_arrays.stream.blk_tris})
+    return [k for k, v in items.items()
+            if not (torch.is_tensor(v) and v.is_cuda)]
+
+
+def phase_frames(renderer):
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+
+    frame_ms = []
+    for k in st.LAUNCHES:
+        st.LAUNCHES[k] = 0
+    prev = dict(st.LAUNCHES)
+    for i in range(5):
+        ms, _ = cuda_ms(renderer.render)
+        frame_ms.append(ms)
+        now = dict(st.LAUNCHES)
+        grew = {k: now[k] - prev[k] for k in now}
+        if not all(v > 0 for v in grew.values()):
+            fail(f"frame {i}: a stream kernel was not launched ({grew})")
+        prev = now
+        print(f"  frame {i}{' (warm-up)' if i == 0 else ''}: {ms:.3f} ms, "
+              f"launches {grew}", flush=True)
+    return frame_ms, dict(st.LAUNCHES)
+
+
+def profile_frame(renderer):
+    """One more frame with every kernel launch timed by CUDA events; keeps
+    each kernel's largest batch for the timing of kernel and plain."""
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+
+    real_launch = st._launch
+    events: list = []
+    largest: dict = {}
+
+    def timed_launch(name, rows, wl, went, cnt, blk_tris, blk_boxes):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_launch(name, rows, wl, went, cnt, blk_tris, blk_boxes)
+        end.record()
+        events.append((name, rows.shape[0], start, end))
+        if rows.shape[0] > largest.get(name, (0,))[0]:
+            largest[name] = (rows.shape[0], (rows, wl, went, cnt, blk_tris,
+                                             blk_boxes), out)
+        return out
+
+    st._launch = timed_launch
+    try:
+        ms, _ = cuda_ms(renderer.render)
+    finally:
+        st._launch = real_launch
+    per_kernel = {k: dict(frame_ms=0.0, frame_launches=0, batches=[])
+                  for k in KERNELS}
+    for name, lanes, start, end in events:
+        pk = per_kernel[name]
+        pk["frame_ms"] += start.elapsed_time(end)
+        pk["frame_launches"] += 1
+        pk["batches"].append(lanes)
+    return ms, per_kernel, largest
+
+
+def small_frames_agree(devices=("cuda", "cpu"), size=(96, 54), frames=2):
+    """The same small menger frames on the card and on the CPU, where
+    every kernel wrapper runs its plain version and the passes are held
+    against the JAX package by tests/test_torch_*.py.  Tolerance, as in
+    those tests: >= 99% of pixels within 1e-3 and per-channel means within
+    0.5%, because an ulp of difference in cos/sin/sqrt between the two
+    devices can flip an RIS pick.  Returns (pixel share, mean deviation)."""
+    from royaltracer_dx_tpu_torch.config import RenderConfig
+    from royaltracer_dx_tpu_torch.render.restir_renderer import RestirRenderer
+    from royaltracer_dx_tpu_torch.scene.procedural import menger_scene
+
+    imgs = []
+    for dev in devices:
+        scene, camera = menger_scene()
+        r = RestirRenderer(scene, camera, RenderConfig(width=size[0],
+                                                       height=size[1]),
+                           device=dev)
+        for _ in range(frames):
+            r.render()
+        imgs.append(r.radiance())
+    if not all(np.isfinite(x).all() and x.mean() > 0.0 for x in imgs):
+        fail("small frames: non-finite or black radiance")
+    a, b = imgs
+    share = float((np.abs(a - b) <= 1e-3 * np.maximum(1.0, np.abs(b)))
+                  .all(axis=-1).mean())
+    ma, mb = a.reshape(-1, 3).mean(0), b.reshape(-1, 3).mean(0)
+    dev_mean = float((np.abs(ma - mb) / np.abs(mb)).max())
+    print(f"  {size[0]}x{size[1]} menger, {frames} frames, {devices[0]} vs "
+          f"{devices[1]}: {share:.4f} of pixels within 1e-3, channel means "
+          f"within {dev_mean:.2e}", flush=True)
+    if share < 0.99 or dev_mean > 5e-3:
+        fail("small frames on the card disagree with the CPU path")
+    return share, dev_mean
+
+
+def device_profile(renderer, out_dir):
+    """One more frame under torch.profiler: the device's busy time (the
+    union of its kernel and copy intervals), the frame's host wall time,
+    and the device time by kernel name.  The profiler's own host cost
+    lengthens the wall time, so the idle share it gives is an upper
+    bound.  Writes the gzipped Chrome trace into ``out_dir`` if given."""
+    import gzip
+    import shutil
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        renderer.render()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_ev = sorted(((e.time_range.start, e.time_range.end, e.name)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda x: x[0])
+    if not dev_ev:
+        print("  profiled frame: the profiler recorded no device events; "
+              "device busy share not measured", flush=True)
+        return None
+    busy_us, cur_s, cur_e = 0.0, dev_ev[0][0], dev_ev[0][1]
+    by_name: dict = {}
+    for s, e, name in dev_ev:
+        by_name.setdefault(name, [0.0, 0])
+        by_name[name][0] += (e - s) / 1e3
+        by_name[name][1] += 1
+        if s > cur_e:
+            busy_us += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy_us += cur_e - cur_s
+    busy_ms = busy_us / 1e3
+    print(f"  profiled frame (torch.profiler): host wall {wall_ms:.3f} ms, "
+          f"device busy {busy_ms:.3f} ms, idle share "
+          f"{1.0 - busy_ms / wall_ms:.4f}, {len(dev_ev)} device events",
+          flush=True)
+    by_kind: dict = {}
+    for name, (ms, n) in by_name.items():
+        kind = next((k for k, keys in PROFILE_KINDS if any(
+            key in name for key in keys)), "float elementwise and other")
+        by_kind.setdefault(kind, [0.0, 0])
+        by_kind[kind][0] += ms
+        by_kind[kind][1] += n
+    for kind, (ms, n) in sorted(by_kind.items(), key=lambda kv: -kv[1][0]):
+        print(f"    {ms:10.3f} ms {n:6d}x  {kind}", flush=True)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for name, (ms, n) in top[:20]:
+        print(f"    {ms:10.3f} ms {n:6d}x  {name[:110]}", flush=True)
+    if out_dir:
+        raw = os.path.join(out_dir, "frame_trace.json")
+        prof.export_chrome_trace(raw)
+        with open(raw, "rb") as src, gzip.open(raw + ".gz", "wb") as dst:
+            shutil.copyfileobj(src, dst)
+        os.remove(raw)
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, events=len(dev_ev),
+                kinds={k: v[0] for k, v in by_kind.items()})
+
+
+def bound_ms(args, out, peak_flops, hbm) -> tuple[float, str, dict]:
+    """The least time for this call's work: bytes each input read once and
+    each output written once over the memory rate, against the FP32
+    operations this call's data needed (its own blocks-visited and
+    clusters-tested counts) over the FP32 peak."""
+    rows, wl, went, cnt, blk_tris, blk_boxes = args
+    tuv, slot, stats = out
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 (rows, wl, went, cnt, blk_tris, blk_boxes, tuv, slot,
+                  stats))
+    blocks = int(stats[:, 0].sum())
+    clusters = int(stats[:, 1].sum())
+    ops = clusters * 128 * 64 * MT_OPS + blocks * 128 * 32 * SLAB_OPS
+    t_bytes = nbytes / hbm * 1e3
+    t_ops = ops / peak_flops * 1e3
+    work = dict(bytes=nbytes, fp32_ops=ops, blocks_visited=blocks,
+                clusters_tested=clusters)
+    if t_ops >= t_bytes:
+        return t_ops, "operations", work
+    return t_bytes, "bytes", work
+
+
+def write_png(path, img):
+    """8-bit RGB PNG from an [H, W, 3] array in [0, 1] (stdlib only)."""
+    h, w, _ = img.shape
+    raw = (np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8)
+    data = b"".join(b"\x00" + raw[y].tobytes() for y in range(h))
+
+    def chunk(tag, body):
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(data, 6)) + chunk(b"IEND", b""))
+
+
+# -------------------------------- main -----------------------------------
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default="",
+                    help="directory for the image (and the --profile trace)")
+    ap.add_argument("--profile", action="store_true",
+                    help="profile one more frame with torch.profiler")
+    args = ap.parse_args()
+    if not os.path.exists(os.path.join(ROOT, SOURCE)):
+        fail(f"{SOURCE} is not beside this script: run it from a checkout")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
+    sys.path.insert(0, ROOT)
+    import royaltracer_dx_tpu_torch  # noqa: F401  (sets the TF32 switches)
+    from royaltracer_dx_tpu_torch.config import RenderConfig
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+    from royaltracer_dx_tpu_torch.render.restir_renderer import RestirRenderer
+    from royaltracer_dx_tpu_torch.scene.procedural import menger_scene
+
+    if "jax" in sys.modules or any(m.startswith("royaltracer_dx_tpu.")
+                                   for m in sys.modules):
+        fail("the port pulled in JAX or the JAX package")
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32):
+        fail("TF32 is on: the port's geometry needs full float32")
+
+    # ---- phase 1: device and build
+    t_start = time.perf_counter()
+    name_power = nvidia_smi("name,power.limit")
+    print(name_power, flush=True)
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    dev = torch.device("cuda")
+    props = torch.cuda.get_device_properties(dev)
+    kind = torch.cuda.get_device_name(0)
+    peak_flops = props.multi_processor_count * 128 * 2 * clock_mhz * 1e6
+    hbm = HBM_PCIE if "PCIe" in kind else HBM_SXM
+    print(f"phase 1: {kind}, {props.multi_processor_count} SMs, max SM clock "
+          f"{clock_mhz:.0f} MHz -> FP32 peak {peak_flops / 1e12:.2f} TFLOP/s, "
+          f"memory {hbm / 1e12:.2f} TB/s; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}", flush=True)
+    st.build_kernels()
+    info = st.BUILD_INFO
+    print(f"  built {os.path.relpath(info['path'], ROOT)} in "
+          f"{info['seconds']:.1f} s ({' '.join(info['flags'])})", flush=True)
+    for line in info["log"].splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            print(f"  ptxas: {line.strip()}", flush=True)
+
+    # ---- the scene of the main path
+    scene, camera = menger_scene()
+    cfg = RenderConfig()
+    renderer = RestirRenderer(scene, camera, cfg)
+    sa = renderer.scene_arrays
+    print(f"  menger scene: {sa.num_triangles} triangles, stream accel "
+          f"{sa.stream.num_blocks} blocks x 32 clusters", flush=True)
+
+    # ---- phase 2: kernels against their plain versions
+    print("phase 2: kernels vs plain versions", flush=True)
+    mismatches = phase_kernels(dev, sa)
+
+    # ---- phase 3: frames (the counted main-path run)
+    print(f"phase 3: {cfg.width}x{cfg.height} menger frames", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    frame_ms, launches = phase_frames(renderer)
+    img = renderer.radiance()
+    if not np.isfinite(img).all():
+        fail("radiance has non-finite values")
+    if not img.mean() > 0.0:
+        fail(f"radiance mean {img.mean()} is not positive")
+    count = renderer.fb.count
+    if not bool((count == 5).all()):
+        fail(f"fb.count is not 5 everywhere (min {float(count.min())}, max "
+             f"{float(count.max())})")
+    off = on_card(renderer)
+    if off:
+        fail(f"state tensors off the card: {off}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    timed = frame_ms[1:]
+    lanes = renderer.metrics["ray_lanes"]
+    print(f"  timed frames: {[round(x, 3) for x in timed]} ms, mean "
+          f"{sum(timed) / len(timed):.3f} ms; {lanes} ray lanes per frame "
+          f"({renderer.metrics['rays_traced']:.0f} active rays); radiance "
+          f"mean {img.mean():.6f}; max memory allocated {peak_gb:.2f} GiB",
+          flush=True)
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        write_png(os.path.join(args.out, "menger_1080p.png"),
+                  renderer.image())
+
+    # ---- each kernel at the main path's largest batch: its frame output
+    # against the plain version on the same inputs, then the timings
+    prof_ms, per_kernel, largest = profile_frame(renderer)
+    print(f"  frame with timed launches: {prof_ms:.3f} ms", flush=True)
+    entries = []
+    for name, replaces in KERNELS.items():
+        pk = per_kernel[name]
+        lanes_n, call, out = largest[name]
+        occ = name == "stream_any"
+        kern = st.stream_any if occ else st.stream_closest
+        plain_ms, p_out = cuda_ms(lambda: st._stream_plain(*call, occ))
+        mm = mismatch(name, out, p_out, lanes_n)
+        mismatches[name].append(dict(mm, case="frame"))
+        cuda_ms(lambda: kern(*call))                       # warm
+        ms, _ = cuda_ms(lambda: kern(*call), reps=5)
+        b_ms, b_by, work = bound_ms(call, out, peak_flops, hbm)
+        print(f"  {name}: {pk['frame_launches']} launches, "
+              f"{pk['frame_ms']:.3f} ms per frame; largest batch "
+              f"{lanes_n} lanes: equal to the plain version ({mm['ties']} "
+              f"exact-t ties); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {b_ms:.3f} ms ({b_by}; {work})", flush=True)
+        entries.append(dict(
+            name=name, route="cuda", source=SOURCE,
+            replaces=REPLACES, replaces_fn=replaces,
+            launches=launches[name], ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            max_abs_err=max(c["max_abs_err"] for c in mismatches[name]),
+            shape_lanes=lanes_n,
+            frame_ms=pk["frame_ms"], frame_launches=pk["frame_launches"],
+            frame_batches=pk["batches"], mismatch=mismatches[name],
+            work=work))
+    agree = small_frames_agree()
+    profile = device_profile(renderer, args.out) if args.profile else None
+    print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"kernels": entries, "frame_ms": timed,
+                      "small_frames_agree": agree, "profile": profile,
+                      "device": name_power}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

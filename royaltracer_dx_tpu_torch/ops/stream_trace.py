@@ -1,0 +1,585 @@
+"""Stream traversal: the two-level StreamAccel and its trace kernels (port
+of royaltracer_dx_tpu/ops/stream_trace.py).
+
+Build half: ``build_stream_accel(method="median")`` ->
+``_build_device_median`` / ``_median_perm_device`` -> ``_layout_device``
+(stream_trace.py:129-404), producing exactly the fields the kernels read:
+``blk_tris`` [B, 9S, G], ``blk_boxes`` [B, 6, 128], ``top_lo`` / ``top_hi``
+[B, 3] and ``perm``.  The bf16 box rows, the thick-plane slabs and
+``refit_stream_accel`` serve only the JAX package's XLA paths and are not
+ported yet.
+
+Trace half: the per-chunk block worklists (``_interval_slab``,
+``_build_worklists``, :431-504) are tensor code; the per-chunk traversal
+is the hand-written CUDA kernel pair in ``csrc/stream_trace.cu``
+(``stream_closest`` / ``stream_any``, replacing the Pallas
+``_make_kernel``, :514-725).  Each kernel's wrapper launches it for CUDA
+tensors (or raises) and runs its plain PyTorch version — the same
+worklist-ordered algorithm in tensor ops — for CPU tensors only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+from royaltracer_dx_tpu_torch.ops.intersect import INF, Hit, as_planes3
+
+G = 64                 # triangles per cluster
+S = 32                 # clusters per block (block = 2048 triangles)
+RAYS_PER_CHUNK = 128   # rays per kernel chunk (one CTA)
+_DET_EPS = 1e-12
+_BIG = 3.0e38
+
+# one launch count per kernel, bumped only where the kernel is launched
+LAUNCHES = {"stream_closest": 0, "stream_any": 0}
+
+
+@dataclasses.dataclass
+class StreamAccel:
+    """Two-level stream-traversal structure (stream_trace.py:64-106).
+
+    Block b, cluster s, lane g address sorted-triangle slot (b*S + s)*G + g;
+    ``perm`` maps slots to original triangle ids (-1 for padding)."""
+
+    blk_tris: torch.Tensor   # [B, 9S, G] v0/e1/e2 planes, cluster-major
+    blk_boxes: torch.Tensor  # [B, 6, 128] cluster AABB planes (lanes >= S pad)
+    top_lo: torch.Tensor     # [B, 3] block AABBs
+    top_hi: torch.Tensor     # [B, 3]
+    perm: torch.Tensor       # [B*S*G] int32
+
+    @property
+    def num_blocks(self) -> int:
+        return self.blk_tris.shape[0]
+
+
+# ------------------------------- build ----------------------------------
+
+
+def _layout_device(sorted_tris, perm, b: int) -> StreamAccel:
+    """Flat-row layout from sorted triangles (stream_trace.py:129-164)."""
+    pad = perm < 0
+    tv = torch.where(pad[:, None, None], torch.zeros_like(sorted_tris),
+                     sorted_tris)
+    v0 = tv[:, 0]
+    e1 = tv[:, 1] - tv[:, 0]
+    e2 = tv[:, 2] - tv[:, 0]
+    planes = torch.cat([v0, e1, e2], dim=1)                   # [slots, 9]
+    blk_tris = (planes.reshape(b, S, G, 9).permute(0, 1, 3, 2)
+                .reshape(b, 9 * S, G).contiguous())
+    big = torch.full_like(tv[:, 0], _BIG)
+    tmin = torch.where(pad[:, None], big, torch.amin(tv, dim=1))
+    tmax = torch.where(pad[:, None], -big, torch.amax(tv, dim=1))
+    cl_lo = torch.amin(tmin.reshape(b, S, G, 3), dim=2)       # [b, S, 3]
+    cl_hi = torch.amax(tmax.reshape(b, S, G, 3), dim=2)
+    # empty clusters/blocks are the far point [+BIG, +BIG], never an
+    # inverted box (which would pass every slab test, :146-153)
+    real_cl = torch.any((perm >= 0).reshape(b, S, G), dim=2)
+    big_cl = torch.full_like(cl_lo, _BIG)
+    cl_lo = torch.where(real_cl[..., None], cl_lo, big_cl)
+    cl_hi = torch.where(real_cl[..., None], cl_hi, big_cl)
+    boxes = torch.full((b, 6, 128), _BIG, dtype=torch.float32,
+                       device=tv.device)
+    boxes[:, 0:3, :S] = cl_lo.permute(0, 2, 1)
+    boxes[:, 3:6, :S] = cl_hi.permute(0, 2, 1)
+    real_blk = torch.any(real_cl, dim=1)
+    top_lo = torch.amin(torch.where(real_cl[..., None], cl_lo, big_cl), dim=1)
+    top_hi = torch.amax(torch.where(real_cl[..., None], cl_hi, -big_cl), dim=1)
+    top_hi = torch.where(real_blk[:, None], top_hi, torch.full_like(top_hi,
+                                                                    _BIG))
+    return StreamAccel(blk_tris=blk_tris, blk_boxes=boxes.contiguous(),
+                       top_lo=top_lo, top_hi=top_hi,
+                       perm=perm.to(torch.int32).contiguous())
+
+
+def _median_perm_device(centroid, tri_id):
+    """Equal-split recursive median ordering (stream_trace.py:249-299).
+
+    Each level orders every segment by its widest centroid axis with a
+    lexicographic stable sort on (segment id, normalized value): a stable
+    sort by the value, then a stable sort by the segment id.  Menger-like
+    geometry has many equal centroid coordinates, so the stable
+    two-pass form is what makes ``perm`` match the JAX build."""
+    p = centroid.shape[0]
+    levels = max(0, (p // G).bit_length() - 1)
+    cx, cy, cz = centroid[:, 0], centroid[:, 1], centroid[:, 2]
+    tid = tri_id
+    iota = torch.arange(p, dtype=torch.int64, device=centroid.device)
+    for lvl in range(levels):
+        nseg = 1 << lvl
+        seglen = p >> lvl
+        segid = iota >> (seglen.bit_length() - 1)
+
+        def ext(c):
+            cc = c.reshape(nseg, seglen)
+            fin = cc < _BIG
+            lo = torch.amin(torch.where(fin, cc, torch.full_like(cc, _BIG)),
+                            dim=1)
+            hi = torch.amax(torch.where(fin, cc, torch.full_like(cc, -_BIG)),
+                            dim=1)
+            return lo, hi
+
+        xlo, xhi = ext(cx)
+        ylo, yhi = ext(cy)
+        zlo, zhi = ext(cz)
+        ex, ey, ez = xhi - xlo, yhi - ylo, zhi - zlo
+
+        def expand(a):
+            return a[:, None].expand(nseg, seglen).reshape(p)
+
+        use_y = expand((ey >= ex) & (ey >= ez))
+        use_z = expand((ez > ex) & (ez > ey) & ~((ey >= ex) & (ey >= ez)))
+        val = torch.where(use_y, cy, torch.where(use_z, cz, cx))
+        lo_e = torch.where(use_y, expand(ylo),
+                           torch.where(use_z, expand(zlo), expand(xlo)))
+        hi_e = torch.where(use_y, expand(yhi),
+                           torch.where(use_z, expand(zhi), expand(xhi)))
+        frac = (val - lo_e) / torch.clamp_min(hi_e - lo_e, 1e-30)
+        frac = torch.where(val < _BIG, frac, torch.full_like(frac, INF))
+        o1 = torch.argsort(frac, stable=True)
+        order = o1[torch.argsort(segid[o1], stable=True)]
+        cx, cy, cz, tid = cx[order], cy[order], cz[order], tid[order]
+    return tid
+
+
+def _build_device_median(tri_padded, num_tris: int) -> StreamAccel:
+    """Median ordering + flat-row layout (stream_trace.py:302-318)."""
+    p = tri_padded.shape[0]
+    dev = tri_padded.device
+    # XLA-CPU computes jnp.mean(axis=1) as sum * (1/3); so does this
+    centroid = (tri_padded[:, 0] + tri_padded[:, 1] + tri_padded[:, 2]) \
+        * (1.0 / 3.0)
+    real = torch.arange(p, device=dev) < num_tris
+    centroid = torch.where(real[:, None], centroid,
+                           torch.full_like(centroid, INF))
+    tid = torch.where(real, torch.arange(p, dtype=torch.int32, device=dev),
+                      torch.full((p,), -1, dtype=torch.int32, device=dev))
+    order = _median_perm_device(centroid, tid)
+    safe = torch.clamp_min(order, 0).long()
+    sorted_tris = torch.where((order >= 0)[:, None, None], tri_padded[safe],
+                              torch.zeros_like(tri_padded))
+    return _layout_device(sorted_tris, order, p // (S * G))
+
+
+def build_stream_accel(tri_verts, method: str = "median") -> StreamAccel:
+    """Build over [T, 3, 3] world-space triangles on their device
+    (stream_trace.py:358-394).  Only the default device median build is
+    ported; it pads to a power of two >= one block."""
+    if method != "median":
+        raise NotImplementedError(
+            f"stream build method {method!r} is not ported (median only)")
+    t = tri_verts.shape[0]
+    p = max(S * G, 1 << (t - 1).bit_length())
+    tv = tri_verts.to(torch.float32)
+    if p > t:
+        tv = torch.cat([tv, torch.zeros((p - t, 3, 3), dtype=tv.dtype,
+                                        device=tv.device)], dim=0)
+    return _build_device_median(tv, t)
+
+
+# --------------------------- chunk worklists -----------------------------
+
+
+def _interval_slab(o_lo, o_hi, d_lo, d_hi, lo, hi, t_lo, t_hi):
+    """Conservative chunk-frustum vs AABB overlap by interval arithmetic
+    (stream_trace.py:431-469).  Returns (pass [chunks, X], entry lower
+    bound [chunks, X])."""
+    chunks = o_lo.shape[0]
+    x = lo.shape[0]
+    tn = t_lo[:, None].expand(chunks, x)
+    tf = t_hi[:, None].expand(chunks, x)
+    one = torch.ones((), dtype=torch.float32, device=lo.device)
+    for c in range(3):
+        dl = d_lo[:, c:c + 1]
+        dh = d_hi[:, c:c + 1]
+        unc = (dl <= 0.0) & (dh >= 0.0)
+        il = torch.where(unc, one, 1.0 / torch.where(dh == 0.0, one, dh))
+        ih = torch.where(unc, one, 1.0 / torch.where(dl == 0.0, one, dl))
+        a1 = lo[None, :, c] - o_hi[:, c:c + 1]
+        a2 = lo[None, :, c] - o_lo[:, c:c + 1]
+        b1 = hi[None, :, c] - o_hi[:, c:c + 1]
+        b2 = hi[None, :, c] - o_lo[:, c:c + 1]
+        mn, mx = torch.minimum, torch.maximum
+        p_min = mn(mn(mn(a1 * il, a1 * ih), mn(a2 * il, a2 * ih)),
+                   mn(mn(b1 * il, b1 * ih), mn(b2 * il, b2 * ih)))
+        p_max = mx(mx(mx(a1 * il, a1 * ih), mx(a2 * il, a2 * ih)),
+                   mx(mx(b1 * il, b1 * ih), mx(b2 * il, b2 * ih)))
+        near = torch.where(unc, torch.full_like(p_min, -_BIG), p_min)
+        far = torch.where(unc, torch.full_like(p_max, _BIG), p_max)
+        tn = torch.maximum(tn, near)
+        tf = torch.minimum(tf, far)
+    return tn <= tf, torch.clamp_min(tn, 0.0)
+
+
+def _build_worklists(origins, dirs, t_min, t_max, accel: StreamAccel,
+                     wb: int):
+    """Per-chunk near-to-far block worklists (stream_trace.py:472-504).
+
+    origins/dirs [N_pad, 3].  Returns (wl [chunks, wb] int32, went
+    [chunks, wb] f32 entry lower bounds, cnt [chunks] int32).  The sort is
+    stable (``lax.sort`` is not, :495): ties between equal entries order
+    by block id, which can change only the slot of an exact-t tie."""
+    n = origins.shape[0]
+    chunks = n // RAYS_PER_CHUNK
+    b = accel.num_blocks
+    o = origins.reshape(chunks, RAYS_PER_CHUNK, 3)
+    d = dirs.reshape(chunks, RAYS_PER_CHUNK, 3)
+    ok, entry = _interval_slab(
+        torch.amin(o, dim=1), torch.amax(o, dim=1),
+        torch.amin(d, dim=1), torch.amax(d, dim=1),
+        accel.top_lo, accel.top_hi,
+        torch.amin(t_min.reshape(chunks, RAYS_PER_CHUNK), dim=1),
+        torch.amax(t_max.reshape(chunks, RAYS_PER_CHUNK), dim=1))
+    key = torch.where(ok, entry, torch.full_like(entry, INF))
+    skey, sbid = torch.sort(key, dim=1, stable=True)
+    if b < wb:
+        skey = torch.nn.functional.pad(skey, (0, wb - b), value=INF)
+        sbid = torch.nn.functional.pad(sbid, (0, wb - b), value=0)
+    wl = sbid[:, :wb].to(torch.int32).contiguous()
+    went = skey[:, :wb].contiguous()
+    cnt = torch.clamp_max(ok.sum(dim=1), wb).to(torch.int32).contiguous()
+    return wl, went, cnt
+
+
+# ------------------------- the kernels' plain form -----------------------
+
+
+def _safe_inv(d):
+    big = torch.where(d >= 0.0, torch.full_like(d, 1e30),
+                      torch.full_like(d, -1e30))
+    return torch.where(torch.abs(d) > 1e-20, 1.0 / d, big)
+
+
+# chunks per step of the plain version: bounds its [chunks, 128, 64]
+# temporaries to ~134 MB each whatever the batch size
+_PLAIN_GROUP = 4096
+
+
+def _stream_plain(rows, wl, went, cnt, blk_tris, blk_boxes,
+                  occlusion: bool):
+    """The kernels' plain PyTorch version: the same worklist-ordered walk
+    (visit order, per-ray slab bound at the block start, first-minimum
+    lane per cluster, strictly-closer across clusters, per-chunk early
+    exit), vectorized over the chunks still walking at each step and run
+    over groups of chunks (chunks are independent).  Returns (tuv [N_pad,
+    3] f32, slot [N_pad] int32, stats [chunks, 2] int32 = blocks visited,
+    clusters tested)."""
+    chunks = rows.shape[0] // RAYS_PER_CHUNK
+    cnt = cnt.reshape(chunks)
+    parts = [_plain_group(rows[c * RAYS_PER_CHUNK:(c + g) * RAYS_PER_CHUNK],
+                          wl[c:c + g], went[c:c + g], cnt[c:c + g], blk_tris,
+                          blk_boxes, occlusion)
+             for c in range(0, chunks, _PLAIN_GROUP)
+             for g in [min(_PLAIN_GROUP, chunks - c)]]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def _plain_group(rows, wl, went, cnt, blk_tris, blk_boxes, occlusion: bool):
+    dev = rows.device
+    n_pad = rows.shape[0]
+    chunks = n_pad // RAYS_PER_CHUNK
+    wb = wl.shape[1]
+    R = RAYS_PER_CHUNK
+    o = rows[:, 0:3].reshape(chunks, R, 3)
+    d = rows[:, 3:6].reshape(chunks, R, 3)
+    t_min = rows[:, 6].reshape(chunks, R)
+    tcur = rows[:, 7].reshape(chunks, R)
+    valid = (rows[:, 8] > 0.5).reshape(chunks, R)
+    inv = _safe_inv(d)
+    oi = o * inv
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    big = torch.full((), _BIG, dtype=torch.float32, device=dev)
+    lane = torch.arange(G, device=dev)
+
+    tbest = tcur.clone()
+    slot = torch.full((chunks, R), -1, dtype=torch.int64, device=dev)
+    bu = torch.zeros((chunks, R), dtype=torch.float32, device=dev)
+    bv = torch.zeros((chunks, R), dtype=torch.float32, device=dev)
+    stats = torch.zeros((chunks, 2), dtype=torch.int64, device=dev)
+    cnt = cnt.long()
+
+    def chunk_bound(tb, vl):
+        if occlusion:
+            return torch.where(torch.any(vl & (tb > 0.0), dim=1), 1.0, -_BIG)
+        return torch.amax(torch.where(vl, tb, zero), dim=1)
+
+    bound = chunk_bound(tcur, valid) if not occlusion else torch.where(
+        torch.any(valid, dim=1), 1.0, -_BIG)
+    walking = torch.ones(chunks, dtype=torch.bool, device=dev)
+    for w in range(wb):
+        more = (bound > 0.0) if occlusion else (went[:, w] < bound)
+        walking = walking & (w < cnt) & more
+        ci = torch.nonzero(walking)[:, 0]
+        if ci.numel() == 0:
+            break
+        bid = wl[ci, w].long()
+        a_o, a_inv, a_oi = o[ci], inv[ci], oi[ci]            # [A, R, 3]
+        a_d = d[ci]
+        a_tmin, a_valid = t_min[ci], valid[ci]               # [A, R]
+        tb = tbest[ci]
+        a_slot, a_u, a_v = slot[ci], bu[ci], bv[ci]
+        boxes = blk_boxes[bid][:, :, :S]                     # [A, 6, S]
+        tn = a_tmin[..., None].expand(-1, -1, S)
+        tf = tb[..., None].expand(-1, -1, S)
+        for c in range(3):
+            t0 = boxes[:, None, c, :] * a_inv[..., c:c + 1] - a_oi[..., c:c + 1]
+            t1 = (boxes[:, None, 3 + c, :] * a_inv[..., c:c + 1]
+                  - a_oi[..., c:c + 1])
+            tn = torch.maximum(tn, torch.minimum(t0, t1))
+            tf = torch.minimum(tf, torch.maximum(t0, t1))
+        cand = (tn <= tf) & a_valid[..., None]               # [A, R, S]
+        hot = torch.any(cand, dim=1)                         # [A, S]
+        stats[ci, 0] += 1
+        stats[ci, 1] += hot.sum(dim=1)
+        ox, oy, oz = (a_o[..., c:c + 1] for c in range(3))   # [A, R, 1]
+        dx, dy, dz = (a_d[..., c:c + 1] for c in range(3))
+        for s in range(S):
+            if not bool(hot[:, s].any()):
+                continue
+            p = blk_tris[bid, s * 9:(s + 1) * 9, :][:, :, None, :]  # [A,9,1,G]
+            v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = p.unbind(1)
+            px = dy * e2z - dz * e2y
+            py = dz * e2x - dx * e2z
+            pz = dx * e2y - dy * e2x
+            det = e1x * px + e1y * py + e1z * pz
+            okd = torch.abs(det) > _DET_EPS
+            inv_det = torch.where(okd, 1.0 / det, zero)
+            tx = ox - v0x
+            ty = oy - v0y
+            tz = oz - v0z
+            uu = (tx * px + ty * py + tz * pz) * inv_det
+            qx = ty * e1z - tz * e1y
+            qy = tz * e1x - tx * e1z
+            qz = tx * e1y - ty * e1x
+            vv = (dx * qx + dy * qy + dz * qz) * inv_det
+            tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+            ok = (okd & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+                  & (tt > a_tmin[..., None]) & (tt < tb[..., None])
+                  & cand[..., s:s + 1])
+            tt = torch.where(ok, tt, big)
+            if occlusion:
+                tb = torch.where(torch.any(tt < _BIG, dim=-1), zero, tb)
+                continue
+            t_c = torch.amin(tt, dim=-1)
+            # the first minimum lane, as the Pallas kernel picks it (:620)
+            idx = torch.amin(torch.where(tt <= t_c[..., None], lane, G),
+                             dim=-1)
+            u_c = torch.gather(uu, -1, idx[..., None])[..., 0]
+            v_c = torch.gather(vv, -1, idx[..., None])[..., 0]
+            better = t_c < tb
+            slot_c = (bid[:, None] * S + s) * G + idx
+            tb = torch.where(better, t_c, tb)
+            a_slot = torch.where(better, slot_c, a_slot)
+            a_u = torch.where(better, u_c, a_u)
+            a_v = torch.where(better, v_c, a_v)
+        tbest[ci] = tb
+        slot[ci], bu[ci], bv[ci] = a_slot, a_u, a_v
+        bound = bound.clone()
+        bound[ci] = chunk_bound(tb, a_valid)
+
+    if occlusion:
+        slot = torch.where(tbest <= 0.0, 1, -1)
+    else:
+        slot = torch.where(tbest < tcur, slot, -1)
+    tuv = torch.stack([tbest, bu, bv], dim=-1).reshape(n_pad, 3)
+    return (tuv, slot.reshape(n_pad).to(torch.int32),
+            stats.to(torch.int32))
+
+
+# ----------------------------- CUDA build --------------------------------
+
+_SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc",
+                    "stream_trace.cu")
+_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                          "_build")
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v"]
+_LIB = None
+BUILD_INFO: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the stream kernels are built from "
+                       "csrc/stream_trace.cu at first use on a CUDA machine")
+
+
+def build_kernels():
+    """Compile csrc/stream_trace.cu with nvcc for sm_90a into _build/
+    (keyed by the source's hash, so an edited source rebuilds) and load it
+    with ctypes.  Called at the first launch; idempotent."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    with open(_SRC, "rb") as f:
+        src = f.read()
+    key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    so = os.path.join(_BUILD_DIR, f"libstream_trace_{key}.so")
+    t0 = time.perf_counter()
+    log = ""
+    if not os.path.exists(so):
+        tmp = f"{so}.{os.getpid()}.tmp"
+        proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, _SRC],
+                              capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed building {_SRC}:\n{log}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(so)
+    for name in ("stream_closest", "stream_any"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int,
+                                               ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    BUILD_INFO.update(path=so, seconds=time.perf_counter() - t0,
+                      log=log, flags=list(_NVCC_FLAGS))
+    _LIB = lib
+    return lib
+
+
+# ---------------------------- kernel wrappers ----------------------------
+
+
+def _check(rows, wl, went, cnt, blk_tris, blk_boxes):
+    n_pad = rows.shape[0]
+    chunks = n_pad // RAYS_PER_CHUNK
+    dev = rows.device
+    wb = wl.shape[-1]
+    want = [
+        (rows, torch.float32, (n_pad, 16)),
+        (wl, torch.int32, (chunks, wb)),
+        (went, torch.float32, (chunks, wb)),
+        (cnt, torch.int32, (chunks,)),
+        (blk_tris, torch.float32, (blk_tris.shape[0], 9 * S, G)),
+        (blk_boxes, torch.float32, (blk_tris.shape[0], 6, 128)),
+    ]
+    if n_pad % RAYS_PER_CHUNK:
+        raise ValueError(f"rows: {n_pad} lanes is not a multiple of "
+                         f"{RAYS_PER_CHUNK}")
+    for t, dtype, shape in want:
+        if t.device != dev:
+            raise ValueError("stream kernel inputs must share one device")
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"stream kernel input {tuple(t.shape)} "
+                             f"{t.dtype}: expected {shape} {dtype}")
+        if not t.is_contiguous():
+            raise ValueError("stream kernel inputs must be contiguous")
+        if dev.type == "cuda" and t.data_ptr() % 16:
+            raise ValueError("stream kernel inputs must be 16-byte aligned")
+
+
+def _launch(name, rows, wl, went, cnt, blk_tris, blk_boxes):
+    lib = build_kernels()
+    n_pad = rows.shape[0]
+    chunks = n_pad // RAYS_PER_CHUNK
+    dev = rows.device
+    tuv = torch.empty((n_pad, 3), dtype=torch.float32, device=dev)
+    slot = torch.empty((n_pad,), dtype=torch.int32, device=dev)
+    stats = torch.empty((chunks, 2), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = getattr(lib, name)(
+        rows.data_ptr(), wl.data_ptr(), went.data_ptr(), cnt.data_ptr(),
+        blk_tris.data_ptr(), blk_boxes.data_ptr(), tuv.data_ptr(),
+        slot.data_ptr(), stats.data_ptr(), chunks, wl.shape[1], stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+    LAUNCHES[name] += 1
+    return tuv, slot, stats
+
+
+def stream_closest(rows, wl, went, cnt, blk_tris, blk_boxes):
+    """Closest-hit stream kernel.  rows [N_pad, 16] f32 (o, d, t_min, t_max,
+    valid, pad); wl / went [chunks, wb]; cnt [chunks] int32; blk_tris
+    [B, 288, 64]; blk_boxes [B, 6, 128].  Returns (tuv [N_pad, 3], slot
+    [N_pad] int32, -1 = none; stats [chunks, 2] int32).  CUDA tensors launch
+    the kernel; CPU tensors run the plain version."""
+    _check(rows, wl, went, cnt, blk_tris, blk_boxes)
+    if rows.is_cuda:
+        return _launch("stream_closest", rows, wl, went, cnt, blk_tris,
+                       blk_boxes)
+    return _stream_plain(rows, wl, went, cnt, blk_tris, blk_boxes, False)
+
+
+def stream_any(rows, wl, went, cnt, blk_tris, blk_boxes):
+    """Any-hit stream kernel; slot is 1 where occluded, -1 elsewhere (same
+    layout as stream_closest)."""
+    _check(rows, wl, went, cnt, blk_tris, blk_boxes)
+    if rows.is_cuda:
+        return _launch("stream_any", rows, wl, went, cnt, blk_tris,
+                       blk_boxes)
+    return _stream_plain(rows, wl, went, cnt, blk_tris, blk_boxes, True)
+
+
+# ------------------------------- tracing --------------------------------
+
+
+def prepare_stream(origins, dirs, accel: StreamAccel, t_min, t_max,
+                   wb: int):
+    """Pad to whole chunks and build the kernel inputs
+    (stream_trace.py:731-761).  Padding lanes get dirs 1.0, t_max -1 and
+    valid 0, so they never hit.  Returns (rows, wl, went, cnt)."""
+    o = torch.stack(as_planes3(origins), dim=1).to(torch.float32)
+    d = torch.stack(as_planes3(dirs), dim=1).to(torch.float32)
+    n = o.shape[0]
+    dev = o.device
+    t_min = torch.as_tensor(t_min, dtype=torch.float32, device=dev).expand(n)
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(n)
+    n_pad = -(-n // RAYS_PER_CHUNK) * RAYS_PER_CHUNK
+    pad = n_pad - n
+    rows = torch.zeros((n_pad, 16), dtype=torch.float32, device=dev)
+    rows[:n, 0:3] = o
+    rows[:n, 3:6] = d
+    rows[:n, 6] = t_min
+    rows[:n, 7] = t_max
+    rows[:n, 8] = 1.0
+    if pad:
+        rows[n:, 3:6] = 1.0
+        rows[n:, 7] = -1.0
+    # a worklist covering EVERY block never overflows (:752-756)
+    wb_eff = max(wb, accel.num_blocks)
+    wl, went, cnt = _build_worklists(rows[:, 0:3], rows[:, 3:6], rows[:, 6],
+                                     rows[:, 7], accel, wb_eff)
+    return rows, wl, went, cnt
+
+
+def closest_hit_stream(origins, dirs, accel: StreamAccel, t_min=1e-4,
+                       t_max=1e4, wb: int = 64) -> Hit:
+    """Closest hit of [N] rays through the stream kernel
+    (stream_trace.py:766-782).  origins/dirs: [N, 3] or planar tuples."""
+    rows, wl, went, cnt = prepare_stream(origins, dirs, accel, t_min, t_max,
+                                         wb)
+    n = as_planes3(origins)[0].shape[0]
+    tuv, slot, _ = stream_closest(rows, wl, went, cnt, accel.blk_tris,
+                                  accel.blk_boxes)
+    tuv, slot = tuv[:n], slot[:n].long()
+    found = slot >= 0
+    tri = torch.where(found, accel.perm[torch.clamp_min(slot, 0)].long(), 0)
+    return Hit(t=torch.where(found, tuv[:, 0], INF), tri=tri, u=tuv[:, 1],
+               v=tuv[:, 2])
+
+
+def any_hit_stream(origins, dirs, accel: StreamAccel, t_min, t_max,
+                   wb: int = 64) -> torch.Tensor:
+    """Boolean occlusion through the stream kernel (stream_trace.py:785-796).
+    Lanes with t_max <= t_min never read as occluded."""
+    rows, wl, went, cnt = prepare_stream(origins, dirs, accel, t_min, t_max,
+                                         wb)
+    n = as_planes3(origins)[0].shape[0]
+    _, slot, _ = stream_any(rows, wl, went, cnt, accel.blk_tris,
+                            accel.blk_boxes)
+    live = rows[:n, 7] > rows[:n, 6]
+    return (slot[:n] >= 0) & live

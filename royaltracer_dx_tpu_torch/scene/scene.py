@@ -1,0 +1,192 @@
+"""Scene: meshes, materials, instances (port of
+royaltracer_dx_tpu/scene/scene.py:30-261).
+
+``add_obj`` (the OBJ loader) and the ``prev=`` refit path of ``flatten``
+are not ported yet.  On the card ``flatten`` always builds the stream
+accel: every trace there runs the stream kernels (ops/restir.py).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from royaltracer_dx_tpu_torch.device import resolve_device
+from royaltracer_dx_tpu_torch.scene.lights import collect_emissive_triangles
+from royaltracer_dx_tpu_torch.scene.lut import compute_ess_lut
+from royaltracer_dx_tpu_torch.scene.types import (
+    LightTriangles,
+    Materials,
+    MeshData,
+    SceneArrays,
+)
+
+# obj_loader.py:25-31 (the JAX package's default material)
+DEFAULT_MATERIAL = dict(
+    kd=(1.0, 1.0, 1.0, 1.0),
+    ks=(1.0, 1.0, 1.0),
+    ke=(0.0, 0.0, 0.0),
+    ni=1.0,
+    pr_pm_ps_pc=(1.0, 0.0, 0.0, 0.0),
+)
+
+
+class Scene:
+    def __init__(self):
+        self.meshes: list[MeshData] = []
+        self._materials: list[dict] = []
+        self.instance_mesh: list[int] = []
+        self.transforms: list[np.ndarray] = []
+        self.prev_transforms: list[np.ndarray] = []
+
+    def add_material(self, **mat) -> int:
+        """Add a material dict; returns its global id (scene.py:40-46)."""
+        full = dict(DEFAULT_MATERIAL)
+        full.update(mat)
+        self._materials.append(full)
+        return len(self._materials) - 1
+
+    def add_mesh(self, vertices, indices, normals=None,
+                 tri_material=None) -> int:
+        """Add a mesh whose tri_material holds GLOBAL material ids."""
+        self.meshes.append(MeshData(vertices, indices, normals, tri_material))
+        return len(self.meshes) - 1
+
+    def add_instance(self, mesh_id: int, transform=None) -> int:
+        if transform is None:
+            transform = np.eye(4, dtype=np.float32)
+        self.instance_mesh.append(mesh_id)
+        self.transforms.append(np.asarray(transform, np.float32))
+        self.prev_transforms.append(np.asarray(transform, np.float32))
+        return len(self.instance_mesh) - 1
+
+    def set_transform(self, instance_id: int, transform):
+        """Rolls current -> prev (scene.py:85-89)."""
+        self.prev_transforms[instance_id] = self.transforms[instance_id]
+        self.transforms[instance_id] = np.asarray(transform, np.float32)
+
+    @property
+    def num_triangles(self) -> int:
+        return sum(self.meshes[m].num_triangles for m in self.instance_mesh)
+
+    def material_table(self) -> dict[str, np.ndarray]:
+        mats = self._materials or [dict(DEFAULT_MATERIAL)]
+        return dict(
+            kd=np.asarray([m["kd"] for m in mats], np.float32),
+            ks=np.asarray([m["ks"] for m in mats], np.float32),
+            ke=np.asarray([m["ke"] for m in mats], np.float32),
+            ni=np.asarray([m["ni"] for m in mats], np.float32),
+            pr_pm_ps_pc=np.asarray([m["pr_pm_ps_pc"] for m in mats],
+                                   np.float32),
+        )
+
+    def build_materials(self, with_lut: bool = True,
+                        device=None) -> Materials:
+        dev = resolve_device(device)
+        t = self.material_table()
+        lut = None
+        if with_lut:
+            lut = compute_ess_lut(t["pr_pm_ps_pc"][:, 0]).numpy()
+        return Materials.from_numpy(t["kd"], t["ks"], t["ni"], t["ke"],
+                                    t["pr_pm_ps_pc"], lut, device=dev)
+
+    def build_lights(self, device=None) -> LightTriangles:
+        t = self.material_table()
+        return collect_emissive_triangles(
+            self.meshes, self.instance_mesh, t["ke"], self.transforms,
+            device=resolve_device(device))
+
+    def _object_static(self):
+        """Concatenated OBJECT-space triangle arrays + instance map
+        (scene.py:121-140), host numpy."""
+        tv, tn, tm, ti = [], [], [], []
+        for inst, mesh_id in enumerate(self.instance_mesh):
+            mesh = self.meshes[mesh_id]
+            tv.append(mesh.vertices[mesh.indices])
+            tn.append(mesh.normals[mesh.indices])
+            tm.append(mesh.tri_material)
+            ti.append(np.full(mesh.num_triangles, inst, np.int32))
+        return (np.concatenate(tv).astype(np.float32),
+                np.concatenate(tn).astype(np.float32),
+                np.concatenate(tm).astype(np.int32),
+                np.concatenate(ti).astype(np.int32))
+
+    def flatten(self, materials: Materials | None = None,
+                build_stream: bool = False, stream_method: str = "median",
+                device=None) -> SceneArrays:
+        """Bake instances into a world-space triangle soup on ``device``
+        (scene.py:142-209).  On CUDA the stream accel is always built."""
+        from royaltracer_dx_tpu_torch.ops.stream_trace import (
+            build_stream_accel,
+        )
+
+        if not self.instance_mesh:
+            raise ValueError("scene has no instances")
+        dev = resolve_device(device)
+        if materials is None:
+            materials = self.build_materials(device=dev)
+        obj_tv, obj_tn, tm, ti = self._object_static()
+        xf = torch.as_tensor(np.stack(self.transforms), device=dev)
+        ti_t = torch.as_tensor(ti, device=dev)
+        tri_verts, tri_normals = _world_bake(
+            torch.as_tensor(obj_tv, device=dev),
+            torch.as_tensor(obj_tn, device=dev), ti_t, xf)
+        stream = None
+        if build_stream or dev.type == "cuda":
+            stream = build_stream_accel(tri_verts, method=stream_method)
+        return SceneArrays(
+            tri_verts=tri_verts,
+            tri_normals=tri_normals,
+            tri_material=torch.as_tensor(tm, device=dev),
+            tri_instance=ti_t,
+            materials=materials,
+            lights=self.build_lights(device=dev),
+            object_to_world=xf,
+            prev_object_to_world=torch.as_tensor(
+                np.stack(self.prev_transforms), device=dev),
+            stream=stream,
+        ).with_tri_table()
+
+
+def _world_bake(obj_tv, obj_tn, tri_instance, transforms):
+    """Object -> world triangle bake (scene.py:212-261): explicit planar
+    fp32 math and an adjugate inverse-transpose for the normals."""
+    a = transforms[:, :3, :3]
+    trn = transforms[:, :3, 3]
+    c00 = a[:, 1, 1] * a[:, 2, 2] - a[:, 1, 2] * a[:, 2, 1]
+    c01 = a[:, 1, 2] * a[:, 2, 0] - a[:, 1, 0] * a[:, 2, 2]
+    c02 = a[:, 1, 0] * a[:, 2, 1] - a[:, 1, 1] * a[:, 2, 0]
+    c10 = a[:, 0, 2] * a[:, 2, 1] - a[:, 0, 1] * a[:, 2, 2]
+    c11 = a[:, 0, 0] * a[:, 2, 2] - a[:, 0, 2] * a[:, 2, 0]
+    c12 = a[:, 0, 1] * a[:, 2, 0] - a[:, 0, 0] * a[:, 2, 1]
+    c20 = a[:, 0, 1] * a[:, 1, 2] - a[:, 0, 2] * a[:, 1, 1]
+    c21 = a[:, 0, 2] * a[:, 1, 0] - a[:, 0, 0] * a[:, 1, 2]
+    c22 = a[:, 0, 0] * a[:, 1, 1] - a[:, 0, 1] * a[:, 1, 0]
+    det = a[:, 0, 0] * c00 + a[:, 0, 1] * c01 + a[:, 0, 2] * c02
+    inv_det = 1.0 / torch.where(torch.abs(det) > 1e-20, det,
+                                torch.ones_like(det))
+    nrm = torch.stack(
+        [torch.stack([c00, c01, c02], dim=-1),
+         torch.stack([c10, c11, c12], dim=-1),
+         torch.stack([c20, c21, c22], dim=-1)], dim=1) * inv_det[:, None, None]
+
+    ti = tri_instance.long()
+    rot_t, trn_t, nrm_t = a[ti], trn[ti], nrm[ti]
+
+    def xform(pts, m, add=None):
+        out = []
+        for c in range(3):
+            acc = (pts[:, :, 0] * m[:, None, c, 0]
+                   + pts[:, :, 1] * m[:, None, c, 1]
+                   + pts[:, :, 2] * m[:, None, c, 2])
+            if add is not None:
+                acc = acc + add[:, None, c]
+            out.append(acc)
+        return torch.stack(out, dim=-1)
+
+    world_v = xform(obj_tv, rot_t, trn_t)
+    n = xform(obj_tn, nrm_t)
+    ln = torch.sqrt(torch.sum(n * n, dim=-1, keepdim=True))
+    world_n = torch.where(ln > 1e-12, n / torch.clamp_min(ln, 1e-12),
+                          torch.zeros_like(n))
+    return world_v, world_n
