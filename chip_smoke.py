@@ -11,14 +11,20 @@ Phases (any failure exits non-zero and prints no result line):
               random rays, closest, and any-hit with half the lanes
               masked; (b) a 262,144-triangle soup (128 blocks) with 64k
               random rays (long worklists) and 64k coherent camera rays
-              (early exits) -- and against brute force on 64k rays.
+              (early exits) -- and against brute force on 64k rays; (c)
+              sparse and ragged batches on the menger accel: 1 valid
+              lane in 16, one valid lane per chunk, chunks with an empty
+              worklist between live ones, 16,201 chunks, a single chunk,
+              and a worklist wider than the accel has blocks.
               Slots and occlusion must be equal (exact-t ties are
-              counted), t/u/v and the per-chunk stats bit-equal.
+              counted), t/u/v and the three per-chunk stats bit-equal.
   3. frames   RestirRenderer on the menger scene at 1920x1080 with the
               default RenderConfig: one warm-up frame and 4 timed frames,
               with the launch counters set to 0 just before and read just
               after; then one more frame whose kernel launches are timed
-              with CUDA events.  Each kernel's output on the largest batch
+              with CUDA events, with each batch's work (visited blocks,
+              hot clusters, candidate pairs, valid lanes) and bound
+              printed.  Each kernel's output on the largest batch
               that frame gave it is held against its plain version on the
               same inputs, and both are timed there.  Last, two 96x54
               menger frames on the card against the same frames on the
@@ -53,14 +59,6 @@ KERNELS = {
     "stream_closest": "_make_kernel(occlusion=False) via closest_hit_stream",
     "stream_any": "_make_kernel(occlusion=True) via any_hit_stream",
 }
-# FP32 operations per Moller-Trumbore test and per ray x cluster-box slab
-# test, counted from the kernel's inner loops: adds, subtracts,
-# multiplies, the one division and the slab's min/max; compares and
-# selects are not counted
-MT_OPS = 46
-SLAB_OPS = 24
-# H100 device-memory rate (NVIDIA data sheet: SXM 3.35 TB/s, PCIe 2.0)
-HBM_SXM, HBM_PCIE = 3.35e12, 2.0e12
 # --profile: device time grouped by kernel-name substrings, first match
 PROFILE_KINDS = [
     ("stream kernels", ("stream_kernel",)),
@@ -220,6 +218,54 @@ def kernel_case(label, accel, tri_verts, o, d, t_max_any, mismatches,
              f"{t_diff + occ_diff} of {m} lanes")
 
 
+def masked_case(label, accel, tri_verts, o, d, keep, mismatches, wb=16,
+                empty_chunks=None):
+    """Both kernels vs their plain versions on a batch where only the
+    lanes of ``keep`` are valid (the others carry valid 0 and t_max -1)
+    and the chunks of ``empty_chunks`` have an empty worklist; the kept
+    lanes of live chunks are also held against brute force (first 64k)."""
+    from royaltracer_dx_tpu_torch.ops import intersect as it
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+
+    n = o.shape[0]
+    live = keep.clone()
+    outs = {}
+    for name, t_far in (("stream_closest", 1e4), ("stream_any", 1.0)):
+        t_max = torch.where(keep, t_far, -1.0)
+        rows, wl, went, cnt = st.prepare_stream(o, d, accel, 1e-4, t_max, wb)
+        rows[:n, 8] = keep.float()
+        if empty_chunks is not None:
+            cnt[empty_chunks] = 0
+            live = keep & ~empty_chunks.repeat_interleave(
+                st.RAYS_PER_CHUNK)[:n]
+        mm, out = compare_kernel(name, (rows, wl, went, cnt, accel.blk_tris,
+                                        accel.blk_boxes))
+        mismatches[name].append(dict(mm, case=label))
+        # a dead lane (t_max < t_min) carries the any-hit t=0 encoding;
+        # liveness masks it, as any_hit_stream does
+        found = (out[1] >= 0) & (rows[:, 7] > rows[:, 6])
+        outs[name] = (out[0], found, out[2])
+        if bool(found[:n][~live].any()):
+            fail(f"{label}: {name} reports a hit on a masked lane")
+    m = min(n, 65536)
+    tuv, slot, stats = outs["stream_closest"]     # slot: lanes with a hit
+    lv = live[:m]
+    bh = it.closest_hit_brute(o[:m], d[:m], tri_verts, 1e-4, 1e4)
+    k_t = torch.where(slot[:m], tuv[:m, 0], it.INF)
+    t_diff = int((k_t != bh.t)[lv].sum())
+    bo = it.any_hit_brute(o[:m], d[:m], tri_verts, 1e-4,
+                          torch.full((m,), 1.0, device=o.device))
+    occ_diff = int((outs["stream_any"][1][:m] != bo)[lv].sum())
+    print(f"  {label}: {n} lanes, {int(live.sum())} live, {cnt.shape[0]} "
+          f"chunks ({int((cnt == 0).sum())} with an empty worklist), wb "
+          f"{wl.shape[1]}; closest: {int(slot.sum())} hits, "
+          f"{int(stats[:, 2].sum())} candidate pairs; vs brute on "
+          f"{int(lv.sum())} live lanes: {t_diff} t and {occ_diff} occlusion "
+          "lanes differ", flush=True)
+    if t_diff + occ_diff > int(lv.sum()) // 10000:
+        fail(f"{label}: the kernels differ from brute force")
+
+
 def phase_kernels(dev, menger_arrays):
     from royaltracer_dx_tpu_torch.ops import stream_trace as st
     from royaltracer_dx_tpu_torch.scene.procedural import random_tris
@@ -238,6 +284,25 @@ def phase_kernels(dev, menger_arrays):
     o, d = camera_rays(256, 3.0, dev)
     kernel_case("soup262k-camera", soup, tris, o, d, 3.0, mismatches,
                 early_exit=True)
+    # sparse and ragged batches on the menger accel
+    mt = menger_arrays.tri_verts
+    n = 1 << 18
+    o, d = random_rays(n, -0.5, 1.5, 5, dev)
+    lane = torch.arange(n, device=dev)
+    every = torch.ones(n, dtype=torch.bool, device=dev)
+    masked_case("menger-1-in-16", acc, mt, o, d, lane % 16 == 0, mismatches)
+    masked_case("menger-1-per-chunk", acc, mt, o, d,
+                lane % st.RAYS_PER_CHUNK == 77, mismatches)
+    masked_case("menger-empty-worklists", acc, mt, o, d, every, mismatches,
+                empty_chunks=torch.arange(n // st.RAYS_PER_CHUNK,
+                                          device=dev) % 2 == 1)
+    masked_case("menger-wb64", acc, mt, o, d, every, mismatches, wb=64)
+    o, d = random_rays(16201 * st.RAYS_PER_CHUNK, -0.5, 1.5, 6, dev)
+    masked_case("menger-16201-chunks", acc, mt, o, d,
+                torch.ones(o.shape[0], dtype=torch.bool, device=dev),
+                mismatches)
+    masked_case("menger-1-chunk", acc, mt, o[:100], d[:100], every[:100],
+                mismatches)
     return mismatches
 
 
@@ -293,7 +358,14 @@ def profile_frame(renderer):
         start.record()
         out = real_launch(name, rows, wl, went, cnt, blk_tris, blk_boxes)
         end.record()
-        events.append((name, rows.shape[0], start, end))
+        work = st.stream_work(rows, wl, went, cnt, blk_tris, blk_boxes,
+                              out[2])
+        live = cnt > 0
+        work.update(
+            chunks=int(cnt.shape[0]), live_chunks=int(live.sum()),
+            live_lanes=int(((rows[:, 8] > 0.5)
+                            & (rows[:, 7] > rows[:, 6])).sum()))
+        events.append((name, rows.shape[0], start, end, work))
         if rows.shape[0] > largest.get(name, (0,))[0]:
             largest[name] = (rows.shape[0], (rows, wl, went, cnt, blk_tris,
                                              blk_boxes), out)
@@ -306,11 +378,12 @@ def profile_frame(renderer):
         st._launch = real_launch
     per_kernel = {k: dict(frame_ms=0.0, frame_launches=0, batches=[])
                   for k in KERNELS}
-    for name, lanes, start, end in events:
+    for name, lanes, start, end, work in events:
         pk = per_kernel[name]
         pk["frame_ms"] += start.elapsed_time(end)
         pk["frame_launches"] += 1
-        pk["batches"].append(lanes)
+        pk["batches"].append(dict(work, lanes=lanes,
+                                  ms=start.elapsed_time(end)))
     return ms, per_kernel, largest
 
 
@@ -415,28 +488,6 @@ def device_profile(renderer, out_dir):
                 kinds={k: v[0] for k, v in by_kind.items()})
 
 
-def bound_ms(args, out, peak_flops, hbm) -> tuple[float, str, dict]:
-    """The least time for this call's work: bytes each input read once and
-    each output written once over the memory rate, against the FP32
-    operations this call's data needed (its own blocks-visited and
-    clusters-tested counts) over the FP32 peak."""
-    rows, wl, went, cnt, blk_tris, blk_boxes = args
-    tuv, slot, stats = out
-    nbytes = sum(t.numel() * t.element_size() for t in
-                 (rows, wl, went, cnt, blk_tris, blk_boxes, tuv, slot,
-                  stats))
-    blocks = int(stats[:, 0].sum())
-    clusters = int(stats[:, 1].sum())
-    ops = clusters * 128 * 64 * MT_OPS + blocks * 128 * 32 * SLAB_OPS
-    t_bytes = nbytes / hbm * 1e3
-    t_ops = ops / peak_flops * 1e3
-    work = dict(bytes=nbytes, fp32_ops=ops, blocks_visited=blocks,
-                clusters_tested=clusters)
-    if t_ops >= t_bytes:
-        return t_ops, "operations", work
-    return t_bytes, "bytes", work
-
-
 def write_png(path, img):
     """8-bit RGB PNG from an [H, W, 3] array in [0, 1] (stdlib only)."""
     h, w, _ = img.shape
@@ -489,8 +540,8 @@ def main() -> None:
     dev = torch.device("cuda")
     props = torch.cuda.get_device_properties(dev)
     kind = torch.cuda.get_device_name(0)
-    peak_flops = props.multi_processor_count * 128 * 2 * clock_mhz * 1e6
-    hbm = HBM_PCIE if "PCIe" in kind else HBM_SXM
+    peak_flops, hbm = st.card_rates(kind, props.multi_processor_count,
+                                    clock_mhz)
     print(f"phase 1: {kind}, {props.multi_processor_count} SMs, max SM clock "
           f"{clock_mhz:.0f} MHz -> FP32 peak {peak_flops / 1e12:.2f} TFLOP/s, "
           f"memory {hbm / 1e12:.2f} TB/s; torch {torch.__version__}, CUDA "
@@ -502,6 +553,12 @@ def main() -> None:
     for line in info["log"].splitlines():
         if "registers" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
+    for name, res in info["resources"].items():
+        print(f"  {name}: {res['ctas_per_sm']} CTAs of 128 threads resident "
+              f"per SM, {res['registers']} registers per thread, "
+              f"{res['shared_bytes']} B of shared memory per CTA", flush=True)
+        if res["ctas_per_sm"] < 2:
+            fail(f"{name}: fewer than 2 CTAs fit an SM")
 
     # ---- the scene of the main path
     scene, camera = menger_scene()
@@ -559,21 +616,41 @@ def main() -> None:
         mismatches[name].append(dict(mm, case="frame"))
         cuda_ms(lambda: kern(*call))                       # warm
         ms, _ = cuda_ms(lambda: kern(*call), reps=5)
-        b_ms, b_by, work = bound_ms(call, out, peak_flops, hbm)
+        work = st.stream_work(*call, out[2])
+        bound = st.bound_ms(work, peak_flops, hbm)
+        frame_bound = 0.0
+        for b in pk["batches"]:
+            b.update(st.bound_ms(b, peak_flops, hbm))
+            frame_bound += b["bound_ms"]
+            live = max(b["live_chunks"], 1)
+            print(f"    batch {b['lanes']} lanes: {b['ms']:.3f} ms, bound "
+                  f"{b['bound_ms']:.3f} ms ({b['bound_by']}); chunks with an "
+                  f"empty worklist {1.0 - b['live_chunks'] / b['chunks']:.4f}"
+                  f"; per live chunk: blocks visited "
+                  f"{b['blocks_visited'] / live:.3f}, hot clusters "
+                  f"{b['clusters_tested'] / live:.3f}, candidate pairs "
+                  f"{b['pairs'] / live:.2f}; valid lanes "
+                  f"{b['valid_lanes'] / b['lanes']:.4f}, live lanes "
+                  f"{b['live_lanes'] / b['lanes']:.4f}", flush=True)
         print(f"  {name}: {pk['frame_launches']} launches, "
-              f"{pk['frame_ms']:.3f} ms per frame; largest batch "
-              f"{lanes_n} lanes: equal to the plain version ({mm['ties']} "
-              f"exact-t ties); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"bound {b_ms:.3f} ms ({b_by}; {work})", flush=True)
+              f"{pk['frame_ms']:.3f} ms per frame (bound {frame_bound:.3f} "
+              f"ms); largest batch {lanes_n} lanes: equal to the plain "
+              f"version ({mm['ties']} exact-t ties); kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {bound['bound_ms']:.3f} ms "
+              f"({bound['bound_by']}: bytes {bound['bytes_ms']:.3f} ms, "
+              f"operations {bound['ops_ms']:.3f} ms), nofma floor "
+              f"{bound['nofma_floor_ms']:.3f} ms; {work}", flush=True)
         entries.append(dict(
             name=name, route="cuda", source=SOURCE,
             replaces=REPLACES, replaces_fn=replaces,
             launches=launches[name], ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            **bound, library_ms=None,
             max_abs_err=max(c["max_abs_err"] for c in mismatches[name]),
             shape_lanes=lanes_n,
-            frame_ms=pk["frame_ms"], frame_launches=pk["frame_launches"],
+            frame_ms=pk["frame_ms"], frame_bound_ms=frame_bound,
+            frame_launches=pk["frame_launches"],
             frame_batches=pk["batches"], mismatch=mismatches[name],
+            resources=st.BUILD_INFO["resources"][name],
             work=work))
     agree = small_frames_agree()
     profile = device_profile(renderer, args.out) if args.profile else None

@@ -12,10 +12,28 @@ ported yet.
 Trace half: the per-chunk block worklists (``_interval_slab``,
 ``_build_worklists``, :431-504) are tensor code; the per-chunk traversal
 is the hand-written CUDA kernel pair in ``csrc/stream_trace.cu``
-(``stream_closest`` / ``stream_any``, replacing the Pallas
-``_make_kernel``, :514-725).  Each kernel's wrapper launches it for CUDA
-tensors (or raises) and runs its plain PyTorch version — the same
-worklist-ordered algorithm in tensor ops — for CPU tensors only.
+(``stream_closest`` / ``stream_any``, replacing both modes of the Pallas
+``_make_kernel``, :514-725).  On the H100 a batch of a rendered frame is
+mostly a stream of lanes whose chunk has an empty worklist (bound by
+bytes), and the chunks that do walk are sparse: each hot cluster is
+wanted by a handful of the chunk's 128 rays.  So the kernels stage
+nothing in shared memory (a ring of bulk-copied cluster tiles was
+measured slower than reading the tiles in place), read boxes and tiles
+through the read-only cache, let a warp take its few wanting rays one at
+a time with the lanes spread over the triangles (or over the boxes),
+cross one CTA-wide barrier per block step, and keep registers low enough
+for 8 CTAs per SM; the source's header note gives the measured reasons.
+Each kernel's wrapper launches it for CUDA tensors (or raises) and runs
+its plain PyTorch version — the same worklist-ordered algorithm in
+tensor ops — for CPU tensors only.
+
+Per-chunk stats, [chunks, 3] int32, equal for kernel and plain version:
+blocks visited, clusters tested (hot for some ray of the chunk), and
+ray-cluster candidate pairs (the sum over the chunk's valid rays and
+visited blocks of the clusters whose box the ray's own slab test
+passed).  ``stream_work`` turns them into the bytes and FP32 operations
+a call needs whatever implements it, and ``bound_ms`` into the least time
+a card could take for them.
 """
 
 from __future__ import annotations
@@ -269,8 +287,8 @@ def _stream_plain(rows, wl, went, cnt, blk_tris, blk_boxes,
     lane per cluster, strictly-closer across clusters, per-chunk early
     exit), vectorized over the chunks still walking at each step and run
     over groups of chunks (chunks are independent).  Returns (tuv [N_pad,
-    3] f32, slot [N_pad] int32, stats [chunks, 2] int32 = blocks visited,
-    clusters tested)."""
+    3] f32, slot [N_pad] int32, stats [chunks, 3] int32 = blocks visited,
+    clusters tested, ray-cluster candidate pairs)."""
     chunks = rows.shape[0] // RAYS_PER_CHUNK
     cnt = cnt.reshape(chunks)
     parts = [_plain_group(rows[c * RAYS_PER_CHUNK:(c + g) * RAYS_PER_CHUNK],
@@ -302,7 +320,7 @@ def _plain_group(rows, wl, went, cnt, blk_tris, blk_boxes, occlusion: bool):
     slot = torch.full((chunks, R), -1, dtype=torch.int64, device=dev)
     bu = torch.zeros((chunks, R), dtype=torch.float32, device=dev)
     bv = torch.zeros((chunks, R), dtype=torch.float32, device=dev)
-    stats = torch.zeros((chunks, 2), dtype=torch.int64, device=dev)
+    stats = torch.zeros((chunks, 3), dtype=torch.int64, device=dev)
     cnt = cnt.long()
 
     def chunk_bound(tb, vl):
@@ -338,6 +356,7 @@ def _plain_group(rows, wl, went, cnt, blk_tris, blk_boxes, occlusion: bool):
         hot = torch.any(cand, dim=1)                         # [A, S]
         stats[ci, 0] += 1
         stats[ci, 1] += hot.sum(dim=1)
+        stats[ci, 2] += cand.sum(dim=(1, 2))
         ox, oy, oz = (a_o[..., c:c + 1] for c in range(3))   # [A, R, 1]
         dx, dy, dz = (a_d[..., c:c + 1] for c in range(3))
         for s in range(S):
@@ -393,6 +412,76 @@ def _plain_group(rows, wl, went, cnt, blk_tris, blk_boxes, occlusion: bool):
             stats.to(torch.int32))
 
 
+# -------------------------- the work of a call ---------------------------
+
+# FP32 operations per Moller-Trumbore test and per ray x cluster-box slab
+# test, counted from the plain version: adds, subtracts, multiplies, the
+# one division and the slab's min/max; compares and selects are not counted
+MT_OPS = 46
+SLAB_OPS = 24
+
+
+def stream_work(rows, wl, went, cnt, blk_tris, blk_boxes, stats) -> dict:
+    """Bytes and FP32 operations one stream_closest / stream_any call
+    needs, from its inputs and its per-chunk stats: the same numbers for
+    any implementation that gives the same answers.
+
+    Operations: every ray-cluster candidate pair (stats column 2) costs
+    G Moller-Trumbore tests, and every valid ray costs S slab tests in
+    each block its chunk visited (column 0).  Rays whose slab test
+    rejected a cluster, and invalid lanes, need nothing.
+
+    Bytes: what the function reads, once, and what it writes, once.  Of a
+    row that is its 9 used floats (columns 9-15 are padding); of the
+    worklists, the ``cnt`` entries of each chunk; of the accel, the
+    smaller of the whole of it (its 32 real boxes a block) and one
+    768-byte box set per visited block plus one 2,304-byte tile per
+    tested cluster; and the outputs tuv, slot and stats."""
+    n_pad = rows.shape[0]
+    chunks = n_pad // RAYS_PER_CHUNK
+    valid = (rows[:, 8] > 0.5).reshape(chunks, RAYS_PER_CHUNK).sum(dim=1)
+    pairs = int(stats[:, 2].sum())
+    ray_blocks = int((valid * stats[:, 0]).sum())
+    blocks_visited = int(stats[:, 0].sum())
+    clusters_tested = int(stats[:, 1].sum())
+    tile, boxes = 9 * G * 4, 6 * S * 4
+    accel = min(blk_tris.shape[0] * (S * tile + boxes),
+                clusters_tested * tile + blocks_visited * boxes)
+    nbytes = (n_pad * 9 * 4 + int(cnt.sum()) * (4 + 4) + chunks * 4 + accel
+              + n_pad * (3 * 4 + 4) + chunks * 3 * 4)
+    return dict(bytes=nbytes,
+                fp32_ops=pairs * G * MT_OPS + ray_blocks * S * SLAB_OPS,
+                pairs=pairs, ray_blocks=ray_blocks,
+                blocks_visited=blocks_visited,
+                clusters_tested=clusters_tested,
+                valid_lanes=int(valid.sum()))
+
+
+# H100 device-memory rate (NVIDIA data sheet), bytes per second
+_HBM_SXM, _HBM_PCIE = 3.35e12, 2.0e12
+
+
+def card_rates(name: str, sm_count: int, sm_clock_mhz: float):
+    """(FP32 operations per second, device-memory bytes per second) of
+    an H100: 128 lanes x 2 operations (one FMA) per SM and clock at the
+    card's maximum SM clock, and the data sheet's memory rate."""
+    return (sm_count * 128 * 2 * sm_clock_mhz * 1e6,
+            _HBM_PCIE if "PCIe" in name else _HBM_SXM)
+
+
+def bound_ms(work: dict, peak_flops: float, hbm: float) -> dict:
+    """The least time a card could take for a call's work (``stream_work``):
+    the larger of its bytes over the memory rate and its operations over
+    the FP32 peak.  ``nofma_floor_ms`` is the operations at one per lane
+    per clock, half the peak's two: what a build without FMA contraction
+    can reach."""
+    t_bytes = work["bytes"] / hbm * 1e3
+    t_ops = work["fp32_ops"] / peak_flops * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bytes_ms=t_bytes, ops_ms=t_ops, nofma_floor_ms=2.0 * t_ops)
+
+
 # ----------------------------- CUDA build --------------------------------
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc",
@@ -417,27 +506,27 @@ def _nvcc() -> str:
                        "csrc/stream_trace.cu at first use on a CUDA machine")
 
 
-def build_kernels():
-    """Compile csrc/stream_trace.cu with nvcc for sm_90a into _build/
-    (keyed by the source's hash, so an edited source rebuilds) and load it
-    with ctypes.  Called at the first launch; idempotent."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    with open(_SRC, "rb") as f:
+def build_library(src_path: str, extra=()):
+    """Compile one CUDA source with nvcc for sm_90a (the package's flags
+    plus ``extra``) into _build/, keyed by the hash of source and flags so
+    that an edit rebuilds, and load it with ctypes.  Returns (library,
+    info); info holds the path, the seconds the build took, nvcc's log
+    and the flags."""
+    flags = [*_NVCC_FLAGS, *extra]
+    with open(src_path, "rb") as f:
         src = f.read()
-    key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     os.makedirs(_BUILD_DIR, exist_ok=True)
     so = os.path.join(_BUILD_DIR, f"libstream_trace_{key}.so")
     t0 = time.perf_counter()
     log = ""
     if not os.path.exists(so):
         tmp = f"{so}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, _SRC],
+        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, src_path],
                               capture_output=True, text=True)
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {_SRC}:\n{log}")
+            raise RuntimeError(f"nvcc failed building {src_path}:\n{log}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(so)
     for name in ("stream_closest", "stream_any"):
@@ -445,10 +534,37 @@ def build_kernels():
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int,
                                                ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    BUILD_INFO.update(path=so, seconds=time.perf_counter() - t0,
-                      log=log, flags=list(_NVCC_FLAGS))
-    _LIB = lib
-    return lib
+    return lib, dict(path=so, seconds=time.perf_counter() - t0, log=log,
+                     flags=flags)
+
+
+def kernel_resources(lib) -> dict:
+    """What the CUDA runtime reports for each kernel of a built library:
+    resident CTAs per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    registers per thread and static shared memory per CTA."""
+    lib.stream_resources.argtypes = [ctypes.c_int,
+                                     ctypes.POINTER(ctypes.c_int)]
+    lib.stream_resources.restype = ctypes.c_int
+    out = {}
+    for name, occ in (("stream_closest", 0), ("stream_any", 1)):
+        vals = (ctypes.c_int * 3)()
+        err = lib.stream_resources(occ, vals)
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA error {err} querying resources")
+        out[name] = dict(ctas_per_sm=vals[0], registers=vals[1],
+                         shared_bytes=vals[2])
+    return out
+
+
+def build_kernels():
+    """Build csrc/stream_trace.cu and load it.  Called at the first
+    launch; idempotent."""
+    global _LIB
+    if _LIB is None:
+        lib, info = build_library(_SRC)
+        BUILD_INFO.update(info, resources=kernel_resources(lib))
+        _LIB = lib
+    return _LIB
 
 
 # ---------------------------- kernel wrappers ----------------------------
@@ -482,14 +598,16 @@ def _check(rows, wl, went, cnt, blk_tris, blk_boxes):
             raise ValueError("stream kernel inputs must be 16-byte aligned")
 
 
-def _launch(name, rows, wl, went, cnt, blk_tris, blk_boxes):
-    lib = build_kernels()
+def _launch(name, rows, wl, went, cnt, blk_tris, blk_boxes, lib=None):
+    """Launch kernel ``name`` of the package's library (or of ``lib``, a
+    build of the same C interface) on PyTorch's current stream."""
+    lib = lib or build_kernels()
     n_pad = rows.shape[0]
     chunks = n_pad // RAYS_PER_CHUNK
     dev = rows.device
     tuv = torch.empty((n_pad, 3), dtype=torch.float32, device=dev)
     slot = torch.empty((n_pad,), dtype=torch.int32, device=dev)
-    stats = torch.empty((chunks, 2), dtype=torch.int32, device=dev)
+    stats = torch.empty((chunks, 3), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = getattr(lib, name)(
         rows.data_ptr(), wl.data_ptr(), went.data_ptr(), cnt.data_ptr(),
@@ -505,7 +623,7 @@ def stream_closest(rows, wl, went, cnt, blk_tris, blk_boxes):
     """Closest-hit stream kernel.  rows [N_pad, 16] f32 (o, d, t_min, t_max,
     valid, pad); wl / went [chunks, wb]; cnt [chunks] int32; blk_tris
     [B, 288, 64]; blk_boxes [B, 6, 128].  Returns (tuv [N_pad, 3], slot
-    [N_pad] int32, -1 = none; stats [chunks, 2] int32).  CUDA tensors launch
+    [N_pad] int32, -1 = none; stats [chunks, 3] int32).  CUDA tensors launch
     the kernel; CPU tensors run the plain version."""
     _check(rows, wl, went, cnt, blk_tris, blk_boxes)
     if rows.is_cuda:

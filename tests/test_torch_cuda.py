@@ -8,7 +8,7 @@ them there with
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Each kernel must equal its plain version bit for bit: t/u/v, the hit
-slot (occlusion) and the per-chunk stats.  Both are built with the same
+slot (occlusion) and the three per-chunk stats.  Both are built with the same
 operation order and without FMA contraction (ops/stream_trace.py), and
 the worklists are the same tensors, so ties resolve alike.  Without a
 card the tests skip (marker ``gpu``).
@@ -62,7 +62,42 @@ def test_cuda_kernel_matches_plain(occlusion):
         rows, wl, went, cnt, ta.blk_tris, ta.blk_boxes, occlusion)
     assert torch.equal(k_slot, p_slot)
     assert torch.equal(k_tuv, p_tuv)
+    assert k_stats.shape == (rows.shape[0] // tst.RAYS_PER_CHUNK, 3)
     assert torch.equal(k_stats, p_stats)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("occlusion", [False, True])
+@pytest.mark.parametrize("case", ["one_in_16", "one_per_chunk",
+                                  "empty_worklists", "single_chunk"])
+def test_cuda_kernel_matches_plain_on_sparse_batches(case, occlusion):
+    """Few valid lanes (the warp-per-ray forms of the slab and hit tests),
+    chunks with an empty worklist between live ones, and a single chunk:
+    all three stats, slots and t/u/v equal the plain version's."""
+    dev = _card()
+    n = 100 if case == "single_chunk" else 20001
+    tris, o, d, _ = _scene_and_rays(n, seed=11)
+    lane = np.arange(n)
+    keep = {"one_in_16": lane % 16 == 0,
+            "one_per_chunk": lane % tst.RAYS_PER_CHUNK == 77}.get(
+                case, np.ones(n, bool))
+    ta = tst.build_stream_accel(torch.as_tensor(tris, device=dev))
+    t_max = torch.as_tensor(np.where(keep, 3.0, -1.0).astype(np.float32),
+                            device=dev)
+    rows, wl, went, cnt = tst.prepare_stream(
+        torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev), ta,
+        1e-4, t_max, 16)
+    rows[:n, 8] = torch.as_tensor(keep, device=dev).float()
+    if case == "empty_worklists":
+        cnt[1::2] = 0
+    kern = tst.stream_any if occlusion else tst.stream_closest
+    k_out = kern(rows, wl, went, cnt, ta.blk_tris, ta.blk_boxes)
+    torch.cuda.synchronize()
+    p_out = tst._stream_plain(rows, wl, went, cnt, ta.blk_tris, ta.blk_boxes,
+                              occlusion)
+    for k, p in zip(k_out, p_out):
+        assert torch.equal(k, p)
+    assert int(k_out[2][:, 2].sum()) > 0
 
 
 @pytest.mark.gpu

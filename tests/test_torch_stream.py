@@ -154,7 +154,9 @@ def test_many_block_worklists_and_early_exit():
     assert wl.shape[1] == 8
     _, slot, stats = tst.stream_closest(rows, wl, went, cnt, ta.blk_tris,
                                         ta.blk_boxes)
+    assert stats.shape == (cnt.shape[0], 3)
     visited = stats[:, 0]
+    assert (stats[:, 2] >= stats[:, 1]).all()        # pairs >= hot clusters
     assert (visited[:5] > 1).any()
     assert (visited[5:] < cnt[5:]).all()             # early exit taken
     th = tst.closest_hit_stream(t_(o), t_(d), ta, wb=1)
