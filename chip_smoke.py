@@ -30,12 +30,33 @@ Phases (any failure exits non-zero and prints no result line):
               menger frames on the card against the same frames on the
               CPU (the plain versions, which the CPU tests hold against
               the JAX package).
-  4. the {"kernels": [...]} line, then the {"ok": true, ...} line.
+  4. scenes   the CLI's large scenes at 1920x1080, each path with the
+              launch counters set to 0 just before it and read just
+              after: (a) sponza (the generated 265k-triangle atrium, 256
+              blocks) through cli.main for 3 frames with
+              --snapshot-every, --checkpoint and --aov all, then a second
+              cli.main call that resumes from the checkpoint for 1 frame
+              (the frame counter must continue); one more frame with
+              timed launches and timed prepare_stream calls, and each
+              kernel against its plain version on that frame's largest
+              batch; (b) dragon (871,200 triangles, 512 blocks) through
+              cli.main --animate for 3 frames, each with a refit update()
+              on the card, then stream_closest against brute force on
+              65,536 of a frame's rays and both kernels against their
+              plain versions on the refitted accel; (c) terrain: the
+              heightfield(708) accel (999,698 triangles) built on the
+              card, closest-hit and any-hit rates on 512x512 swizzled
+              camera rays and on the shadow batch of bench.py:491-511;
+              (d) render_many(3) against 3 render() calls on a 256x256
+              menger frame, bit for bit.
+  5. the {"kernels": [...]} line, then the {"ok": true, ...} line.
 
---out DIR writes the rendered image there as a PNG.  --profile runs one
-more frame under torch.profiler and prints the device's busy time and
-its time by kernel name (with --out, also the gzipped Chrome trace).
-The script imports nothing of JAX: it runs the port alone.
+--out DIR writes the rendered images there as PNGs (else the scenes
+phase writes its CLI outputs into a temporary directory).  --profile runs
+one more menger frame under torch.profiler and prints the device's busy
+time and its time by kernel name (with --out, also the gzipped Chrome
+trace), and one more sponza and dragon frame each in phase 4.  The
+script imports nothing of JAX: it runs the port alone.
 """
 
 from __future__ import annotations
@@ -46,6 +67,7 @@ import os
 import struct
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 
@@ -327,8 +349,7 @@ def phase_frames(renderer):
     from royaltracer_dx_tpu_torch.ops import stream_trace as st
 
     frame_ms = []
-    for k in st.LAUNCHES:
-        st.LAUNCHES[k] = 0
+    reset_launches()
     prev = dict(st.LAUNCHES)
     for i in range(5):
         ms, _ = cuda_ms(renderer.render)
@@ -349,8 +370,26 @@ def profile_frame(renderer):
     from royaltracer_dx_tpu_torch.ops import stream_trace as st
 
     real_launch = st._launch
+    real_prepare = st.prepare_stream
     events: list = []
     largest: dict = {}
+    prepares: list = []
+
+    def timed_prepare(origins, dirs, accel, t_min, t_max, wb):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_prepare(origins, dirs, accel, t_min, t_max, wb)
+        end.record()
+        end.synchronize()
+        prepares.append(dict(lanes=int(out[0].shape[0]),
+                             ms=start.elapsed_time(end),
+                             peak_gib=(torch.cuda.max_memory_allocated()
+                                       - base) / 2**30))
+        return out
 
     def timed_launch(name, rows, wl, went, cnt, blk_tris, blk_boxes):
         start = torch.cuda.Event(enable_timing=True)
@@ -372,10 +411,12 @@ def profile_frame(renderer):
         return out
 
     st._launch = timed_launch
+    st.prepare_stream = timed_prepare
     try:
         ms, _ = cuda_ms(renderer.render)
     finally:
         st._launch = real_launch
+        st.prepare_stream = real_prepare
     per_kernel = {k: dict(frame_ms=0.0, frame_launches=0, batches=[])
                   for k in KERNELS}
     for name, lanes, start, end, work in events:
@@ -384,6 +425,7 @@ def profile_frame(renderer):
         pk["frame_launches"] += 1
         pk["batches"].append(dict(work, lanes=lanes,
                                   ms=start.elapsed_time(end)))
+    per_kernel["prepare_stream"] = prepares
     return ms, per_kernel, largest
 
 
@@ -422,7 +464,7 @@ def small_frames_agree(devices=("cuda", "cpu"), size=(96, 54), frames=2):
     return share, dev_mean
 
 
-def device_profile(renderer, out_dir):
+def device_profile(renderer, out_dir, tag="frame_trace"):
     """One more frame under torch.profiler: the device's busy time (the
     union of its kernel and copy intervals), the frame's host wall time,
     and the device time by kernel name.  The profiler's own host cost
@@ -479,13 +521,343 @@ def device_profile(renderer, out_dir):
     for name, (ms, n) in top[:20]:
         print(f"    {ms:10.3f} ms {n:6d}x  {name[:110]}", flush=True)
     if out_dir:
-        raw = os.path.join(out_dir, "frame_trace.json")
+        raw = os.path.join(out_dir, f"{tag}.json")
         prof.export_chrome_trace(raw)
         with open(raw, "rb") as src, gzip.open(raw + ".gz", "wb") as dst:
             shutil.copyfileobj(src, dst)
         os.remove(raw)
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, events=len(dev_ev),
                 kinds={k: v[0] for k, v in by_kind.items()})
+
+
+# ------------------------------ phase 4 ----------------------------------
+
+
+def reset_launches():
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+
+    for k in st.LAUNCHES:
+        st.LAUNCHES[k] = 0
+
+
+def read_launches(label):
+    """The launch counts of the path just driven; fails unless every
+    kernel was launched in it."""
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+
+    got = dict(st.LAUNCHES)
+    if not all(v > 0 for v in got.values()):
+        fail(f"{label}: a stream kernel was not launched ({got})")
+    return got
+
+
+def kernel_vs_plain(label, name, call, out, rates, mismatches):
+    """One kernel's output on a batch against its plain version on the
+    same inputs (bit-equal, as in phase 3), and the times of both and the
+    bound.  Returns the entry of the kernels line for this scene."""
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+
+    occ = name == "stream_any"
+    kern = st.stream_any if occ else st.stream_closest
+    plain_ms, p_out = cuda_ms(lambda: st._stream_plain(*call, occ))
+    mm = mismatch(name, out, p_out, int(call[0].shape[0]))
+    mismatches[name].append(dict(mm, case=label))
+    cuda_ms(lambda: kern(*call))                           # warm
+    ms, _ = cuda_ms(lambda: kern(*call), reps=5)
+    work = st.stream_work(*call, out[2])
+    bound = st.bound_ms(work, *rates)
+    print(f"  {label} {name}: largest batch {mm['lanes']} lanes, equal to "
+          f"the plain version ({mm['ties']} exact-t ties); kernel {ms:.3f} "
+          f"ms, plain {plain_ms:.3f} ms, bound {bound['bound_ms']:.3f} ms "
+          f"({bound['bound_by']}: bytes {bound['bytes_ms']:.3f} ms, "
+          f"operations {bound['ops_ms']:.3f} ms), nofma floor "
+          f"{bound['nofma_floor_ms']:.3f} ms; {work}", flush=True)
+    return dict(lanes=mm["lanes"], ms=ms, plain_ms=plain_ms,
+                max_abs_err=mm["max_abs_err"], **bound, work=work)
+
+
+def scene_frame(label, renderer, rates, mismatches, profile_dir=None):
+    """One more frame of ``renderer`` with timed launches and timed
+    prepare_stream calls; each kernel against its plain version on that
+    frame's largest batch.  With ``profile_dir`` (None: no profile; "":
+    no trace file) first one frame under torch.profiler.  Returns
+    (per-kernel entries, frame info, largest calls)."""
+    profile = None
+    if profile_dir is not None:
+        print(f"  {label} profiled frame:", flush=True)
+        profile = device_profile(renderer, profile_dir, f"{label}_trace")
+    prof_ms, per_kernel, largest = profile_frame(renderer)
+    prep = per_kernel.pop("prepare_stream")
+    big = max(prep, key=lambda x: x["lanes"])
+    print(f"  {label} frame with timed launches: {prof_ms:.3f} ms; "
+          f"prepare_stream: {len(prep)} calls, {sum(x['ms'] for x in prep):.3f}"
+          f" ms in all; on the largest batch ({big['lanes']} lanes) "
+          f"{big['ms']:.3f} ms and {big['peak_gib']:.3f} GiB of peak memory "
+          "above what was allocated before it", flush=True)
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+
+    entries = {}
+    for name in KERNELS:
+        pk = per_kernel[name]
+        frame_bound = sum(st.bound_ms(b, *rates)["bound_ms"]
+                          for b in pk["batches"])
+        print(f"  {label} {name}: {pk['frame_launches']} launches, "
+              f"{pk['frame_ms']:.3f} ms per frame (bound {frame_bound:.3f} "
+              "ms)", flush=True)
+        _, call, out = largest[name]
+        e = kernel_vs_plain(label, name, call, out, rates, mismatches)
+        e.update(frame_ms=pk["frame_ms"], frame_launches=pk["frame_launches"],
+                 frame_bound_ms=frame_bound)
+        entries[name] = e
+    info = dict(timed_frame_ms=prof_ms, prepare_calls=len(prep),
+                prepare_ms=sum(x["ms"] for x in prep),
+                prepare_largest=big, profile=profile)
+    return entries, info, largest
+
+
+def cli_scene(label, argv, frames):
+    """cli.main on ``argv``; checks the frame count, the accumulation
+    and the radiance.  Returns (cli result, launches, peak GiB, s)."""
+    from royaltracer_dx_tpu_torch import cli
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches(label)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    r = res["renderer"]
+    img = r.radiance()
+    if r.frame != frames:
+        fail(f"{label}: the frame counter reads {r.frame}, expected {frames}")
+    if not bool((r.fb.count == frames).all()):
+        fail(f"{label}: fb.count is not {frames} everywhere")
+    if not (np.isfinite(img).all() and img.mean() > 0.0):
+        fail(f"{label}: radiance is not finite and positive")
+    on = on_card(r)
+    if on:
+        fail(f"{label}: state tensors off the card: {on}")
+    return res, launches, peak, secs
+
+
+def phase_scenes(out_dir, rates, mismatches, profile_dir=None):
+    from royaltracer_dx_tpu_torch.camera import Camera, generate_rays
+    from royaltracer_dx_tpu_torch.config import RenderConfig
+    from royaltracer_dx_tpu_torch.ops import intersect as it
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+    from royaltracer_dx_tpu_torch.render import restir_renderer as rr
+    from royaltracer_dx_tpu_torch.scene.procedural import (
+        heightfield,
+        menger_scene,
+    )
+
+    out = {}
+    entries = {k: {} for k in KERNELS}
+    real_compact = rr.pass1_gi_bounce_compact
+    comp_log: list = []
+
+    def logged_compact(scene, cfg, state, bounce=0):
+        act = state["active"]
+        cnt = int(act.sum())
+        comp_log.append(dict(bounce=int(bounce), active=cnt,
+                             lanes=int(act.shape[0]),
+                             half=cnt <= act.shape[0] // 2))
+        return real_compact(scene, cfg, state, bounce)
+
+    rr.pass1_gi_bounce_compact = logged_compact
+    size = ["--width", "1920", "--height", "1080"]
+    try:
+        # ---- (a) sponza through the CLI, then a resumed run
+        png = os.path.join(out_dir, "sponza.png")
+        ck = os.path.join(out_dir, "sponza_ckpt.npz")
+        if os.path.exists(ck):
+            os.remove(ck)
+        res, launches, peak, secs = cli_scene(
+            "sponza", ["--scene", "sponza", *size, "--frames", "3",
+                       "--snapshot-every", "3", "--checkpoint", ck,
+                       "--aov", "all", "--out", png], 3)
+        r = res["renderer"]
+        sa = r.scene_arrays
+        outputs = [png, ck, os.path.join(out_dir, "sponza_00003.png")] + [
+            os.path.join(out_dir, f"sponza.{c}.png")
+            for c in ("albedo", "normal", "depth", "material_id")]
+        missing = [p for p in outputs if not os.path.exists(p)]
+        if missing:
+            fail(f"sponza: the CLI did not write {missing}")
+        half = [c for c in comp_log if c["half"]]
+        print(f"  sponza: {sa.num_triangles} triangles, "
+              f"{sa.lights.count} emissive triangles, "
+              f"{sa.stream.num_blocks} blocks; cli.main {secs:.1f} s, "
+              f"frames {[round(x, 3) for x in res['frame_ms']]} ms, mean "
+              f"{float(np.mean(res['frame_ms'])):.3f} ms; peak memory "
+              f"{peak:.2f} GiB; launches {launches}; compaction on "
+              f"{len(comp_log)} bounces, at half width on {len(half)}: "
+              f"{comp_log}", flush=True)
+        comp_a = list(comp_log)
+        comp_log.clear()
+        res2, launches2, _, secs2 = cli_scene(
+            "sponza resumed", ["--scene", "sponza", *size, "--frames", "1",
+                               "--checkpoint", ck, "--out", png], 4)
+        print(f"  sponza resumed from the checkpoint: frame counter "
+              f"{res2['renderer'].frame}, fb.count 4; {secs2:.1f} s, frame "
+              f"{res2['frame_ms'][0]:.3f} ms; launches {launches2}",
+              flush=True)
+        e, info, _ = scene_frame("sponza", res2["renderer"], rates,
+                                 mismatches, profile_dir)
+        for k in KERNELS:
+            entries[k]["sponza"] = dict(e[k], launches=launches[k])
+        out["sponza"] = dict(
+            triangles=sa.num_triangles, emissive=sa.lights.count,
+            blocks=sa.stream.num_blocks, frame_ms=res["frame_ms"],
+            resumed_frame_ms=res2["frame_ms"], peak_gib=peak,
+            launches=launches, compaction=comp_a, **info)
+        del r, res, res2, sa
+        comp_log.clear()
+        torch.cuda.empty_cache()
+
+        # ---- (b) dragon with --animate: a refit update() per frame
+        res, launches, peak, secs = cli_scene(
+            "dragon", ["--scene", "dragon", *size, "--frames", "3",
+                       "--animate", "--out",
+                       os.path.join(out_dir, "dragon.png")], 3)
+        r = res["renderer"]
+        sa = r.scene_arrays
+        print(f"  dragon: {sa.num_triangles} triangles, {sa.stream.num_blocks}"
+              f" blocks; cli.main {secs:.1f} s, refit update() "
+              f"{[round(x, 3) for x in res['refit_ms']]} ms, frames "
+              f"{[round(x, 3) for x in res['frame_ms']]} ms; peak memory "
+              f"{peak:.2f} GiB; launches {launches}; compaction at half "
+              f"width on {sum(c['half'] for c in comp_log)} of "
+              f"{len(comp_log)} bounces", flush=True)
+        comp_b = list(comp_log)
+        e, info, largest = scene_frame("dragon", r, rates, mismatches,
+                                       profile_dir)
+        for k in KERNELS:
+            entries[k]["dragon"] = dict(e[k], launches=launches[k])
+        # the refitted accel against brute force on 65,536 of the frame's
+        # closest-hit rays (the valid lanes of its largest batch, strided)
+        _, call, kout = largest["stream_closest"]
+        rows = call[0]
+        lanes = torch.nonzero(rows[:, 8] > 0.5)[:, 0]
+        pick = lanes[torch.linspace(0, lanes.shape[0] - 1, 65536,
+                                    device=lanes.device).long()]
+        rw = rows[pick]
+        bh = it.closest_hit_brute(rw[:, 0:3], rw[:, 3:6], sa.tri_verts,
+                                  rw[:, 6], rw[:, 7], chunk=2048)
+        slot = kout[1][pick].long()
+        found = slot >= 0
+        k_t = torch.where(found, kout[0][pick, 0], it.INF)
+        k_tri = torch.where(found, sa.stream.perm[slot.clamp_min(0)].long(),
+                            0)
+        t_off = int(((k_t - bh.t).abs() > 1e-5).sum())
+        tri_off = int(((k_tri != bh.tri) & found & (k_t != bh.t)).sum())
+        ties = int(((k_tri != bh.tri) & found & (k_t == bh.t)).sum())
+        print(f"  dragon refitted accel vs brute force on 65536 rays: "
+              f"{int(found.sum())} hits, {t_off} lanes with t off by more "
+              f"than 1e-5, {tri_off} other triangles off exact-t ties, "
+              f"{ties} exact-t ties", flush=True)
+        if t_off + tri_off > 65536 // 10000:
+            fail("dragon: the refitted accel differs from brute force")
+        out["dragon"] = dict(
+            triangles=sa.num_triangles, blocks=sa.stream.num_blocks,
+            refit_ms=res["refit_ms"], frame_ms=res["frame_ms"],
+            peak_gib=peak, launches=launches, compaction=comp_b,
+            brute=dict(rays=65536, t_off=t_off, tri_off=tri_off, ties=ties),
+            **info)
+        del r, res, sa, largest, call, kout, rows
+        torch.cuda.empty_cache()
+    finally:
+        rr.pass1_gi_bounce_compact = real_compact
+
+    # ---- (c) terrain: the 1M-triangle accel and the trace rates
+    dev = torch.device("cuda")
+    v, idx = heightfield(708)
+    tris = torch.as_tensor(v[idx], device=dev)
+    build = []
+    for _ in range(2):
+        ms, accel = cuda_ms(lambda: st.build_stream_accel(tris))
+        build.append(ms)
+    cam = Camera(eye=(2.5, 2.2, 2.5), center=(0.0, 0.0, 0.0))
+    ca = {k: torch.as_tensor(x, device=dev)
+          for k, x in cam.matrices(1.0).items()}
+    o, d = generate_rays(ca, 512, 512)
+    order, _ = st.swizzle_order(512, 512, tile_w=8, tile_h=8)
+    order = torch.as_tensor(order, device=dev).long()
+    o, d = o[order].contiguous(), d[order].contiguous()
+    n = o.shape[0]
+    reset_launches()
+    hit = st.closest_hit_stream(o, d, accel)
+    lp = torch.tensor([0.0, 0.9, 0.0], device=dev)
+    t_s = torch.where(hit.t < 1e29, hit.t, 2.0)
+    p = o + d * (t_s[:, None] * 0.999)
+    ld = lp[None, :] - p
+    dist = torch.linalg.norm(ld, dim=1, keepdim=True)
+    ld = ld / torch.clamp_min(dist, 1e-6)
+    tmax = dist[:, 0] - 1e-3
+    occ = st.any_hit_stream(p, ld, accel, 1e-3, tmax)
+    rates_t = {}
+    for label, fn in (
+            ("closest_camera", lambda: st.closest_hit_stream(o, d, accel)),
+            ("anyhit_shadow",
+             lambda: st.any_hit_stream(p, ld, accel, 1e-3, tmax)),
+            ("closest_shadow",
+             lambda: st.closest_hit_stream(p, ld, accel, 1e-3, tmax))):
+        cuda_ms(fn)
+        ms, _ = cuda_ms(fn, reps=10)
+        rates_t[label] = dict(ms=ms, mrays_per_s=n / ms / 1e3)
+    launches = read_launches("terrain")
+    calls = {}
+    for name, (oo, dd, t0_, t1_) in (("stream_closest", (o, d, 1e-4, 1e4)),
+                                     ("stream_any", (p, ld, 1e-3, tmax))):
+        rows, wl, went, cnt = st.prepare_stream(oo, dd, accel, t0_, t1_, 64)
+        calls[name] = (rows, wl, went, cnt, accel.blk_tris, accel.blk_boxes)
+        kern = st.stream_any if name == "stream_any" else st.stream_closest
+        kms, kout = cuda_ms(lambda: kern(*calls[name]), reps=10)
+        rates_t[name + "_kernel_only"] = dict(ms=kms,
+                                              mrays_per_s=n / kms / 1e3)
+        entries[name]["terrain"] = dict(
+            kernel_vs_plain("terrain", name, calls[name], kout, rates,
+                            mismatches), launches=launches[name])
+    print(f"  terrain: {tris.shape[0]} triangles, {accel.num_blocks} blocks;"
+          f" build {[round(x, 3) for x in build]} ms; 512x512 rays, "
+          f"{float(occ.float().mean()):.4f} of the shadow batch occluded; "
+          + "; ".join(f"{k} {x['ms']:.3f} ms = {x['mrays_per_s']:.1f} "
+                      "Mrays/s" for k, x in rates_t.items())
+          + f"; launches {launches}", flush=True)
+    out["terrain"] = dict(triangles=int(tris.shape[0]),
+                          blocks=accel.num_blocks, build_ms=build,
+                          occluded=float(occ.float().mean()), rates=rates_t,
+                          launches=launches)
+    del tris, accel, calls, hit
+    torch.cuda.empty_cache()
+
+    # ---- (d) render_many(3) against 3 render() calls, bit for bit
+    reset_launches()
+    imgs, states = [], []
+    for many in (True, False):
+        scene, camera = menger_scene()
+        r = rr.RestirRenderer(scene, camera, RenderConfig(width=256,
+                                                          height=256))
+        if many:
+            r.render_many(3)
+        else:
+            for _ in range(3):
+                r.render()
+        imgs.append(r.radiance())
+        states.append(r.state_dict())
+    launches = read_launches("render_many")
+    same_img = bool(np.array_equal(imgs[0], imgs[1]))
+    diff_keys = [k for k in states[0]
+                 if not np.array_equal(states[0][k], states[1][k])]
+    print(f"  render_many(3) vs 3 render() on 256x256 menger: images "
+          f"bit-equal {same_img}, state arrays that differ {diff_keys}; "
+          f"launches {launches}", flush=True)
+    if not same_img or diff_keys:
+        fail("render_many(3) differs from 3 render() calls")
+    out["render_many"] = dict(bit_equal=True, launches=launches)
+    return out, entries
 
 
 def write_png(path, img):
@@ -609,15 +981,6 @@ def main() -> None:
     for name, replaces in KERNELS.items():
         pk = per_kernel[name]
         lanes_n, call, out = largest[name]
-        occ = name == "stream_any"
-        kern = st.stream_any if occ else st.stream_closest
-        plain_ms, p_out = cuda_ms(lambda: st._stream_plain(*call, occ))
-        mm = mismatch(name, out, p_out, lanes_n)
-        mismatches[name].append(dict(mm, case="frame"))
-        cuda_ms(lambda: kern(*call))                       # warm
-        ms, _ = cuda_ms(lambda: kern(*call), reps=5)
-        work = st.stream_work(*call, out[2])
-        bound = st.bound_ms(work, peak_flops, hbm)
         frame_bound = 0.0
         for b in pk["batches"]:
             b.update(st.bound_ms(b, peak_flops, hbm))
@@ -634,30 +997,40 @@ def main() -> None:
                   f"{b['live_lanes'] / b['lanes']:.4f}", flush=True)
         print(f"  {name}: {pk['frame_launches']} launches, "
               f"{pk['frame_ms']:.3f} ms per frame (bound {frame_bound:.3f} "
-              f"ms); largest batch {lanes_n} lanes: equal to the plain "
-              f"version ({mm['ties']} exact-t ties); kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms, bound {bound['bound_ms']:.3f} ms "
-              f"({bound['bound_by']}: bytes {bound['bytes_ms']:.3f} ms, "
-              f"operations {bound['ops_ms']:.3f} ms), nofma floor "
-              f"{bound['nofma_floor_ms']:.3f} ms; {work}", flush=True)
+              "ms)", flush=True)
+        e = kernel_vs_plain("menger", name, call, out, (peak_flops, hbm),
+                            mismatches)
         entries.append(dict(
-            name=name, route="cuda", source=SOURCE,
+            e, name=name, route="cuda", source=SOURCE,
             replaces=REPLACES, replaces_fn=replaces,
-            launches=launches[name], ms=ms, plain_ms=plain_ms,
-            **bound, library_ms=None,
-            max_abs_err=max(c["max_abs_err"] for c in mismatches[name]),
+            launches=launches[name], library_ms=None,
             shape_lanes=lanes_n,
             frame_ms=pk["frame_ms"], frame_bound_ms=frame_bound,
             frame_launches=pk["frame_launches"],
             frame_batches=pk["batches"], mismatch=mismatches[name],
-            resources=st.BUILD_INFO["resources"][name],
-            work=work))
+            resources=st.BUILD_INFO["resources"][name]))
     agree = small_frames_agree()
     profile = device_profile(renderer, args.out) if args.profile else None
+    del renderer, sa
+    torch.cuda.empty_cache()
+
+    # ---- phase 4: the CLI's scenes
+    print("phase 4: scenes at 1920x1080", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = args.out or tmp
+        os.makedirs(out_dir, exist_ok=True)
+        scenes, by_kernel = phase_scenes(
+            out_dir, (peak_flops, hbm), mismatches,
+            args.out if args.profile else None)
+    print(f"  scenes phase {time.perf_counter() - t0:.1f} s", flush=True)
+    for e in entries:
+        e["scenes"] = by_kernel[e["name"]]
+        e["max_abs_err"] = max(c["max_abs_err"] for c in mismatches[e["name"]])
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries, "frame_ms": timed,
                       "small_frames_agree": agree, "profile": profile,
-                      "device": name_power}), flush=True)
+                      "scenes": scenes, "device": name_power}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -67,9 +67,8 @@ class RenderConfig:
     # raise NotImplementedError (ops/restir.py).
     traversal: str = "auto"
     stream_wb: int = 16
-    # GI wavefront compaction: only "auto"/"off" in this port; "auto"
-    # resolves to off on scenes of <= 128 clusters (restir.py:115-127),
-    # "on" raises NotImplementedError (ops/restir_gi.py).
+    # GI wavefront compaction: "on" | "off" | "auto" ("auto" turns it on
+    # for scenes of more than 128 clusters, restir.py:115-127).
     gi_compaction: str = "auto"
     cluster_group: int = 128
     cluster_tile: int = 128
@@ -87,7 +86,7 @@ class RenderConfig:
     reference_mis_quirk: bool = True
     temporal_reuse: bool = True
     seed_mode: str = "frame"
-    # Only "f32" payload records in this port (f16/bf16 payloads wait);
+    # Payload record storage: "f32" | "f16" | "bf16" (compute stays f32);
     # pass 3's f16 ACCEPT tables ship at every record_dtype, as in JAX.
     record_dtype: str = "f32"
 

@@ -35,6 +35,7 @@ from royaltracer_dx_tpu_torch.ops.intersect import (
     as_planes3,
     closest_hit_brute,
     hit_attributes_p,
+    interpolate_hit,
 )
 from royaltracer_dx_tpu_torch.ops.stream_trace import (
     S,
@@ -87,6 +88,16 @@ def resolve_any_mode(scene: SceneArrays, cfg: RenderConfig, n: int) -> str:
     return _resolve_accel(scene, cfg)
 
 
+def wants_gi_compaction(scene: SceneArrays, cfg: RenderConfig) -> bool:
+    """GI wavefront compaction decision (:115-127): "on", or "auto" on a
+    scene whose stream accel has more than 128 clusters (the windowed
+    scale, where the traces it saves are expensive)."""
+    if cfg.gi_compaction == "on":
+        return True
+    return (cfg.gi_compaction == "auto" and scene.stream is not None
+            and scene.stream.num_blocks * S > _FLAT_MAX_CLUSTERS)
+
+
 def trace_mode(scene: SceneArrays, cfg: RenderConfig, n: int,
                coherent: bool = True, closest: bool = True) -> str:
     """Which trace a batch takes: "stream" (the kernels) or "brute"."""
@@ -125,6 +136,31 @@ def _any_dispatch(scene: SceneArrays, origins, dirs, cfg: RenderConfig,
     return any_hit_brute(op, dp, scene.tri_verts, t_min, t_max)
 
 
+def trace_closest(scene: SceneArrays, origins, dirs, cfg: RenderConfig,
+                  t_min=1e-4) -> dict:
+    """AoS TraceRay + ClosestHit/Miss (:251-273): dict(pos [N, 3],
+    normal [N, 3], area, mid, obj, valid); v6 smooth normals, no flip
+    toward the ray; misses get the sentinel material id and zeros."""
+    hit = _closest_dispatch(scene, origins, dirs, cfg, t_min, _T_MAX)
+    pos = origins + hit.t[:, None] * dirs
+    _, normal, _, area = interpolate_hit(hit, scene.tri_verts,
+                                         scene.tri_normals)
+    valid = hit.valid
+    v3 = valid[:, None]
+    zero = _z(area)
+    return dict(
+        pos=torch.where(v3, pos, zero),
+        normal=torch.where(v3, normal, zero),
+        area=torch.where(valid, area, zero),
+        mid=torch.where(valid, scene.tri_material[hit.tri],
+                        torch.full_like(scene.tri_material[hit.tri],
+                                        MISS_ID_I32)),
+        obj=torch.where(valid, scene.tri_instance[hit.tri],
+                        torch.zeros_like(scene.tri_instance[hit.tri])),
+        valid=valid,
+    )
+
+
 def trace_occluded(scene, origins, dirs, t_min, t_max, cfg):
     """Shadow TraceRay (ShadowRay.hlsl, :276-278)."""
     return _any_dispatch(scene, origins, dirs, cfg, t_min, t_max)
@@ -159,6 +195,24 @@ def fetch_material_p(scene: SceneArrays, mid) -> dict:
         rough=col(9, zero),
         metal=col(10, zero),
         lut=tuple(col(11 + k, one) for k in range(16)),
+    )
+
+
+def fetch_material(scene: SceneArrays, mid) -> dict:
+    """AoS MaterialOptimized gather (:292-306); the sentinel id maps to the
+    all-zero miss material with LUT 1."""
+    sentinel = mid == MISS_ID_I32
+    safe = torch.where(sentinel, torch.zeros_like(mid), mid).long()
+    mats = scene.materials
+    z = sentinel[:, None]
+    zero = torch.zeros((), dtype=torch.float32, device=mid.device)
+    return dict(
+        kd=torch.where(z, zero, mats.kd[safe]),
+        ks=torch.where(z, zero, mats.ks[safe]),
+        ke=torch.where(z, zero, mats.ke[safe]),
+        rough=torch.where(sentinel, zero, mats.pr_pm_ps_pc[safe, 0]),
+        metal=torch.where(sentinel, zero, mats.pr_pm_ps_pc[safe, 1]),
+        lut=torch.where(z, zero + 1.0, mats.lut[safe]),
     )
 
 

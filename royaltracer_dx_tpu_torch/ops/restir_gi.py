@@ -6,9 +6,8 @@ royaltracer_dx_tpu/ops/restir_gi.py:41-271, Path_Sampler_v6.hlsl:3-286).
   gi_finalize — deferred shadow validation of the winning NEE sample
 
 Dead-lane retirement (restir.py:641-642): inactive lanes trace dead
-segments.  The wavefront-compaction variant (restir_renderer.py:325-355)
-is not ported: it resolves to off at <= 128 clusters (restir.py:115-127),
-and ``gi_compaction="on"`` raises in the renderer.
+segments.  The wavefront-compaction variant of ``gi_bounce`` is the
+renderer's ``pass1_gi_bounce_compact``.
 
 Deviation kept from the JAX package: a continuation ray that escapes the
 scene terminates the lane.

@@ -5,9 +5,10 @@ Build half: ``build_stream_accel(method="median")`` ->
 ``_build_device_median`` / ``_median_perm_device`` -> ``_layout_device``
 (stream_trace.py:129-404), producing exactly the fields the kernels read:
 ``blk_tris`` [B, 9S, G], ``blk_boxes`` [B, 6, 128], ``top_lo`` / ``top_hi``
-[B, 3] and ``perm``.  The bf16 box rows, the thick-plane slabs and
-``refit_stream_accel`` serve only the JAX package's XLA paths and are not
-ported yet.
+[B, 3] and ``perm``; ``refit_stream_accel`` (:396-405) re-lays moved
+triangles out in the build's order.  The bf16 box rows and the
+thick-plane slabs serve only the JAX package's XLA paths and are not
+ported.
 
 Trace half: the per-chunk block worklists (``_interval_slab``,
 ``_build_worklists``, :431-504) are tensor code; the per-chunk traversal
@@ -46,6 +47,7 @@ import shutil
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 from royaltracer_dx_tpu_torch.ops.intersect import INF, Hit, as_planes3
@@ -186,6 +188,16 @@ def _build_device_median(tri_padded, num_tris: int) -> StreamAccel:
     return _layout_device(sorted_tris, order, p // (S * G))
 
 
+def refit_stream_accel(accel: StreamAccel, tri_verts_new) -> StreamAccel:
+    """Refit with moved vertices, keeping the build's ``perm`` (the TLAS
+    updateOnly analog, stream_trace.py:396-405): one gather through perm
+    and the same layout; padding slots stay masked by ``perm < 0``.  A
+    refitted accel differs from a fresh build of the moved triangles."""
+    gathered = tri_verts_new.to(torch.float32)[
+        torch.clamp_min(accel.perm, 0).long()]
+    return _layout_device(gathered, accel.perm, accel.num_blocks)
+
+
 def build_stream_accel(tri_verts, method: str = "median") -> StreamAccel:
     """Build over [T, 3, 3] world-space triangles on their device
     (stream_trace.py:358-394).  Only the default device median build is
@@ -203,6 +215,21 @@ def build_stream_accel(tri_verts, method: str = "median") -> StreamAccel:
 
 
 # --------------------------- chunk worklists -----------------------------
+
+
+def swizzle_order(width: int, height: int, tile_w: int = 16, tile_h: int = 8):
+    """Pixel permutation making each 128-ray chunk a tile_w x tile_h pixel
+    rectangle (stream_trace.py:410-430), host numpy.  Returns (order,
+    inverse) int32 arrays of length width*height; apply as
+    ``rays[order]``, undo as ``result[inverse]``."""
+    assert width % tile_w == 0 and height % tile_h == 0
+    ys, xs = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
+    tile_id = (ys // tile_h) * (width // tile_w) + (xs // tile_w)
+    in_tile = (ys % tile_h) * tile_w + (xs % tile_w)
+    key = tile_id.astype(np.int64) * (tile_w * tile_h) + in_tile
+    order = np.argsort(key.ravel(), kind="stable").astype(np.int32)
+    inverse = np.argsort(order, kind="stable").astype(np.int32)
+    return order, inverse
 
 
 def _interval_slab(o_lo, o_hi, d_lo, d_hi, lo, hi, t_lo, t_hi):
@@ -276,8 +303,9 @@ def _safe_inv(d):
 
 
 # chunks per step of the plain version: bounds its [chunks, 128, 64]
-# temporaries to ~134 MB each whatever the batch size
-_PLAIN_GROUP = 4096
+# temporaries, whatever the batch size, to ~134 MB each on the CPU and
+# ~1 GB on an 80 GB card
+_PLAIN_GROUP = {"cpu": 4096, "cuda": 32768}
 
 
 def _stream_plain(rows, wl, went, cnt, blk_tris, blk_boxes,
@@ -291,11 +319,12 @@ def _stream_plain(rows, wl, went, cnt, blk_tris, blk_boxes,
     clusters tested, ray-cluster candidate pairs)."""
     chunks = rows.shape[0] // RAYS_PER_CHUNK
     cnt = cnt.reshape(chunks)
+    step = _PLAIN_GROUP.get(rows.device.type, _PLAIN_GROUP["cpu"])
     parts = [_plain_group(rows[c * RAYS_PER_CHUNK:(c + g) * RAYS_PER_CHUNK],
                           wl[c:c + g], went[c:c + g], cnt[c:c + g], blk_tris,
                           blk_boxes, occlusion)
-             for c in range(0, chunks, _PLAIN_GROUP)
-             for g in [min(_PLAIN_GROUP, chunks - c)]]
+             for c in range(0, chunks, step)
+             for g in [min(step, chunks - c)]]
     return tuple(torch.cat(p) for p in zip(*parts))
 
 
@@ -359,32 +388,39 @@ def _plain_group(rows, wl, went, cnt, blk_tris, blk_boxes, occlusion: bool):
         stats[ci, 2] += cand.sum(dim=(1, 2))
         ox, oy, oz = (a_o[..., c:c + 1] for c in range(3))   # [A, R, 1]
         dx, dy, dz = (a_d[..., c:c + 1] for c in range(3))
-        for s in range(S):
-            if not bool(hot[:, s].any()):
+        # each cluster is tested on the chunks where it is hot, in cluster
+        # order (a chunk where it is not hot gets nothing from it): the
+        # (cluster, chunk) pairs in one sort, split with one host read
+        per_s = torch.sum(hot, dim=0).tolist()
+        pairs = torch.nonzero(hot.t())[:, 1]
+        for s, h in zip(range(S), torch.split(pairs, per_s)):
+            if h.numel() == 0:
                 continue
-            p = blk_tris[bid, s * 9:(s + 1) * 9, :][:, :, None, :]  # [A,9,1,G]
+            p = blk_tris[bid[h], s * 9:(s + 1) * 9, :][:, :, None, :]
             v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = p.unbind(1)
-            px = dy * e2z - dz * e2y
-            py = dz * e2x - dx * e2z
-            pz = dx * e2y - dy * e2x
+            hx, hy, hz = dx[h], dy[h], dz[h]                 # [H, R, 1]
+            px = hy * e2z - hz * e2y
+            py = hz * e2x - hx * e2z
+            pz = hx * e2y - hy * e2x
             det = e1x * px + e1y * py + e1z * pz
             okd = torch.abs(det) > _DET_EPS
             inv_det = torch.where(okd, 1.0 / det, zero)
-            tx = ox - v0x
-            ty = oy - v0y
-            tz = oz - v0z
+            tx = ox[h] - v0x
+            ty = oy[h] - v0y
+            tz = oz[h] - v0z
             uu = (tx * px + ty * py + tz * pz) * inv_det
             qx = ty * e1z - tz * e1y
             qy = tz * e1x - tx * e1z
             qz = tx * e1y - ty * e1x
-            vv = (dx * qx + dy * qy + dz * qz) * inv_det
+            vv = (hx * qx + hy * qy + hz * qz) * inv_det
             tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+            tb_h = tb[h]
             ok = (okd & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
-                  & (tt > a_tmin[..., None]) & (tt < tb[..., None])
-                  & cand[..., s:s + 1])
+                  & (tt > a_tmin[h][..., None]) & (tt < tb_h[..., None])
+                  & cand[h][..., s:s + 1])
             tt = torch.where(ok, tt, big)
             if occlusion:
-                tb = torch.where(torch.any(tt < _BIG, dim=-1), zero, tb)
+                tb[h] = torch.where(torch.any(tt < _BIG, dim=-1), zero, tb_h)
                 continue
             t_c = torch.amin(tt, dim=-1)
             # the first minimum lane, as the Pallas kernel picks it (:620)
@@ -392,12 +428,12 @@ def _plain_group(rows, wl, went, cnt, blk_tris, blk_boxes, occlusion: bool):
                              dim=-1)
             u_c = torch.gather(uu, -1, idx[..., None])[..., 0]
             v_c = torch.gather(vv, -1, idx[..., None])[..., 0]
-            better = t_c < tb
-            slot_c = (bid[:, None] * S + s) * G + idx
-            tb = torch.where(better, t_c, tb)
-            a_slot = torch.where(better, slot_c, a_slot)
-            a_u = torch.where(better, u_c, a_u)
-            a_v = torch.where(better, v_c, a_v)
+            better = t_c < tb_h
+            slot_c = (bid[h][:, None] * S + s) * G + idx
+            tb[h] = torch.where(better, t_c, tb_h)
+            a_slot[h] = torch.where(better, slot_c, a_slot[h])
+            a_u[h] = torch.where(better, u_c, a_u[h])
+            a_v[h] = torch.where(better, v_c, a_v[h])
         tbest[ci] = tb
         slot[ci], bu[ci], bv[ci] = a_slot, a_u, a_v
         bound = bound.clone()

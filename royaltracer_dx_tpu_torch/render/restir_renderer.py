@@ -23,13 +23,17 @@ launches the stream kernels of csrc/stream_trace.cu.
 
 Pass 3 reads its accept rows from float16 tables exactly where the JAX
 package does (:651-653, :756-757) and gathers the chosen candidates'
-payload again from the float32 shards; otherwise the accept masks differ.
+payload again from the packed shards; otherwise the accept masks differ.
+The shards are stored in ``cfg.record_dtype`` (f32, f16 or bf16): values
+round through torch.float16 / torch.bfloat16 (round to nearest even, as
+XLA's converts do) at the same places as in the JAX package, and the
+flags are computed on the stored values (:110-168).
 
-Not ported yet: ``update()`` (the refit path), ``render_many``, f16/bf16
-payload records (``record_dtype`` other than "f32" raises), GI wavefront
-compaction (``gi_compaction="on"`` raises; it is bit-identical where
-"auto" would enable it, so the port runs uncompacted), per-pass profiling
-and pixel-band sharding.
+``update()`` refits the scene after ``Scene.set_transform``;
+``render_many(k)`` runs k frames with one synchronisation; GI wavefront
+compaction (``pass1_gi_bounce_compact``) runs where
+``restir.wants_gi_compaction`` says.  Not ported: per-pass profiling and
+pixel-band sharding.
 """
 
 from __future__ import annotations
@@ -71,9 +75,9 @@ _SD_KEYS = ("x1", "n1", "o", "l1", "mid", "obj")
 _RES_KEYS = ("w_sum", "w", "m")
 _F = torch.float32
 _I = torch.int32
-# pass 3's f16 accept tables carry material and instance ids as values,
-# exact below 2^11 (restir_renderer.py:1074-1082)
-_F16_ID_LIMIT = 2048
+# payload record dtypes (:975-977)
+_REC_DTYPES = {"f32": torch.float32, "f16": torch.float16,
+               "bf16": torch.bfloat16}
 
 
 def _pixel_grid(cfg: RenderConfig, device):
@@ -106,20 +110,23 @@ def _len_sq(v3):
             + v3[..., 2] * v3[..., 2])
 
 
-def _pack_record(sd: dict, res: dict, keys: tuple) -> tuple:
-    """sdata planes + reservoir planes -> three [N, 8] f32 shards
-    (:110-166):
+def _pack_record(sd: dict, res: dict, keys: tuple,
+                 dtype=torch.float32) -> tuple:
+    """sdata planes + reservoir planes -> three [N, 8] shards stored in
+    ``dtype`` (:110-166):
 
       S0: x1(3) n1(3) mid flags     -- every accept test's columns
       S1: vec0(3) vec1(3) w_sum obj -- GI jacobian tries + payloads
       S2: o(3) vec2(3) w m          -- chosen-candidate epilogue
 
-    flags = (|l1| == 0) + 2 * is_valid; ids travel as float values."""
+    flags = (|l1| == 0) + 2 * is_valid, evaluated on the stored-dtype
+    values; ids travel as float values (exact below 2^11 in f16)."""
     v0, v1, v2 = (res[k] for k in keys)
-    s0 = torch.stack(list(sd["x1"]) + list(sd["n1"]), -1)
-    s1 = torch.stack(list(v0) + list(v1) + [res["w_sum"]], -1)
-    s2 = torch.stack(list(sd["o"]) + list(v2) + [res["w"], res["m"]], -1)
-    l1_zero = _len_sq(torch.stack(list(sd["l1"]), -1)) == 0.0
+    s0, s1, s2 = (torch.stack(c, -1).to(dtype).to(_F) for c in (
+        list(sd["x1"]) + list(sd["n1"]),
+        list(v0) + list(v1) + [res["w_sum"]],
+        list(sd["o"]) + list(v2) + [res["w"], res["m"]]))
+    l1_zero = _len_sq(torch.stack(list(sd["l1"]), -1).to(dtype).to(_F)) == 0.0
     w_sum_s = s1[..., 6]
     m_s = s2[..., 7]
     if keys[0] == "x2":     # DI validity (reservoir.is_valid_di_p)
@@ -131,7 +138,7 @@ def _pack_record(sd: dict, res: dict, keys: tuple) -> tuple:
     flags = l1_zero.to(_F) + 2.0 * valid.to(_F)
     s0 = torch.cat([s0, sd["mid"].to(_F)[..., None], flags[..., None]], -1)
     s1 = torch.cat([s1, sd["obj"].to(_F)[..., None]], -1)
-    return s0, s1, s2
+    return s0.to(dtype), s1.to(dtype), s2.to(dtype)
 
 
 def _unpack_record(rows: tuple, keys: tuple) -> tuple[dict, dict]:
@@ -249,6 +256,43 @@ def pass1_gi_init(scene, gi_inputs: dict, seed, cfg: RenderConfig) -> dict:
 
 
 pass1_gi_bounce = restir_gi.gi_bounce
+
+
+def _tree_map(fn, tree, *rest):
+    """fn over the leaves of nested dicts and tuples of tensors (and the
+    matching leaves of ``rest``)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_tree_map(fn, *vs) for vs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def pass1_gi_bounce_compact(scene, cfg: RenderConfig, st: dict,
+                            bounce: int = 0) -> dict:
+    """gi_bounce with wavefront compaction (:325-356): the active lanes
+    are stably partitioned to the front (stable argsorts of ~active), and
+    when they fit in half the width the bounce runs on that half while
+    the dead tail passes through untouched.  Every state leaf, the seeds
+    included, moves with its lane, so the result equals the uncompacted
+    bounce bit for bit.
+
+    The JAX package picks the half or the full width on the device with
+    ``lax.cond(cnt <= half, ...)``; here that choice is one host read of
+    the active count per bounce."""
+    active = st["active"]
+    half = active.shape[0] // 2
+    order = torch.argsort((~active).to(torch.uint8), stable=True)
+    inverse = torch.argsort(order, stable=True)
+    stp = _tree_map(lambda a: a[order], st)
+    if int(active.sum()) <= half:
+        head = restir_gi.gi_bounce(
+            scene, cfg, _tree_map(lambda a: a[:half], stp), bounce)
+        stp = _tree_map(lambda h, t: torch.cat([h, t[half:]]), head, stp)
+    else:
+        stp = restir_gi.gi_bounce(scene, cfg, stp, bounce)
+    return _tree_map(lambda a: a[inverse], stp)
 
 
 def pass1_gi_final(scene, gi_inputs: dict, st: dict, cfg: RenderConfig):
@@ -462,9 +506,9 @@ def _gi_candidates(cur_gi, sdata, mat, packed_gi, cam_pos, xs, ys, cfg,
     _, seed = tea_random(seed)
     nb_gi, nb_sd_g = [], []
     for v in range(k):
-        g0v = _tap_gather(packed_gi[0], sel_pidx[v])
-        g1v = _tap_gather(packed_gi[1], sel_pidx[v])
-        g2v = _tap_gather(packed_gi[2], sel_pidx[v])
+        g0v = _tap_gather(packed_gi[0], sel_pidx[v]).to(_F)
+        g1v = _tap_gather(packed_gi[1], sel_pidx[v]).to(_F)
+        g2v = _tap_gather(packed_gi[2], sel_pidx[v]).to(_F)
         nb_gi.append(dict(
             xn=(g1v[:, 0], g1v[:, 1], g1v[:, 2]),
             nn=(g1v[:, 3], g1v[:, 4], g1v[:, 5]),
@@ -495,8 +539,9 @@ def pass3_spatial(scene, cam: dict, frame: int, cur_di: dict, cur_gi: dict,
     k = cfg.spatial_candidate_count
     zero = shading.to(_F) * 0.0
 
-    packed_di = _pack_record(sdata, cur_di, _DI_KEYS)
-    packed_gi = _pack_record(sdata, cur_gi, _GI_KEYS)
+    rd = _rec_dtype(cfg)
+    packed_di = _pack_record(sdata, cur_di, _DI_KEYS, rd)
+    packed_gi = _pack_record(sdata, cur_gi, _GI_KEYS, rd)
 
     # ---- DI candidates (pass3:107-142): each try gathers only the f16
     # ACCEPT row (x1/n1/mid/flags); the k chosen candidates' payload,
@@ -525,8 +570,8 @@ def pass3_spatial(scene, cam: dict, frame: int, cur_di: dict, cur_gi: dict,
     _, seed = tea_random(seed)
     nb_di, nb_sd = [], []
     for v in range(k):
-        r0v = _tap_gather(packed_di[0], sel_pidx[v])
-        r2v = _tap_gather(packed_di[2], sel_pidx[v])
+        r0v = _tap_gather(packed_di[0], sel_pidx[v]).to(_F)
+        r2v = _tap_gather(packed_di[2], sel_pidx[v]).to(_F)
         nb_di.append(_unpack_res(_tap_gather(packed_di[1], sel_pidx[v]), r2v,
                                  _DI_KEYS))
         nb_sd.append(dict(
@@ -696,12 +741,18 @@ def pass3_spatial(scene, cam: dict, frame: int, cur_di: dict, cur_gi: dict,
 # ============================== RENDERER =================================
 
 
-def _pack_last(last_di: dict, last_gi: dict, last_sdata: dict) -> tuple:
+def _rec_dtype(cfg: RenderConfig) -> torch.dtype:
+    """The payload records' storage dtype (:975-977)."""
+    return _REC_DTYPES[cfg.record_dtype]
+
+
+def _pack_last(last_di: dict, last_gi: dict, last_sdata: dict,
+               dtype=torch.float32) -> tuple:
     """Persistent AoS state -> the two packed shard-tuple gather tables
     (:980-991)."""
     sd = to_planes(last_sdata)
-    return (_pack_record(sd, to_planes(last_di), _DI_KEYS),
-            _pack_record(sd, to_planes(last_gi), _GI_KEYS))
+    return (_pack_record(sd, to_planes(last_di), _DI_KEYS, dtype),
+            _pack_record(sd, to_planes(last_gi), _GI_KEYS, dtype))
 
 
 def _frame_body(scene, cam_base: dict, cfg: RenderConfig, st: dict,
@@ -716,13 +767,18 @@ def _frame_body(scene, cam_base: dict, cfg: RenderConfig, st: dict,
     res_di, sdata, gi_in, seed = pass1_di(scene, cam, frame, cfg)
     occ = [gi_in["sampling"].to(_F).mean()]
     gst = pass1_gi_init(scene, gi_in, seed, cfg)
+    # compaction pays two argsorts and two permutations of the whole
+    # state per bounce: only worth it where traces are expensive (:1144-
+    # 1152), so the decision is restir.wants_gi_compaction's
+    compact = restir.wants_gi_compaction(scene, cfg)
+    bounce_fn = pass1_gi_bounce_compact if compact else pass1_gi_bounce
     for b in range(cfg.gi_bounces):
         occ.append(gst["active"].to(_F).mean())
-        gst = pass1_gi_bounce(scene, cfg, gst, b)
+        gst = bounce_fn(scene, cfg, gst, b)
     res_gi, _ = pass1_gi_final(scene, gi_in, gst, cfg)
     if cfg.temporal_reuse:
         packed_di, packed_gi = _pack_last(st["last_di"], st["last_gi"],
-                                          st["last_sdata"])
+                                          st["last_sdata"], _rec_dtype(cfg))
         res_di, res_gi = pass2_temporal(scene, cam, frame, res_di, res_gi,
                                         sdata, packed_di, packed_gi, cfg)
     sample, shaded, out_di, out_gi = pass3_spatial(
@@ -769,20 +825,24 @@ class RestirRenderer:
             raise NotImplementedError(
                 f"traversal={cfg.accel!r} is not ported; use auto, brute or "
                 "stream")
-        if cfg.gi_compaction == "on":
-            raise NotImplementedError("GI wavefront compaction is not ported")
-        if cfg.record_dtype != "f32":
-            raise NotImplementedError(
-                f"record_dtype={cfg.record_dtype!r}: only f32 payload records "
-                "are ported")
-        # the JAX package checks this only for f16/bf16 payloads, but the
-        # f16 accept tables ship at every record_dtype
+        if cfg.gi_compaction not in ("auto", "on", "off"):
+            raise ValueError(f"gi_compaction={cfg.gi_compaction!r}")
+        if cfg.record_dtype not in _REC_DTYPES:
+            raise ValueError(f"record_dtype={cfg.record_dtype!r}: one of "
+                             f"{sorted(_REC_DTYPES)}")
+        # material and instance ids travel as values in half-precision
+        # columns, exact below 2^(mantissa + 1) (:1074-1082): 2^11 in
+        # pass 3's f16 accept tables, which ship at every record_dtype
+        # (the JAX package checks only f16/bf16 payloads), 2^8 in bf16
+        # payloads
+        lim = 256 if cfg.record_dtype == "bf16" else 2048
         n_mat = len(scene._materials)
         n_inst = len(scene.instance_mesh)
-        if n_mat >= _F16_ID_LIMIT or n_inst >= _F16_ID_LIMIT:
+        if n_mat >= lim or n_inst >= lim:
             raise ValueError(
-                f"pass 3's f16 accept tables need material ({n_mat}) and "
-                f"instance ({n_inst}) counts < {_F16_ID_LIMIT}")
+                f"record_dtype='{cfg.record_dtype}' (and pass 3's f16 accept "
+                f"tables) need material ({n_mat}) and instance ({n_inst}) "
+                f"counts < {lim}")
         self.device = resolve_device(device)
         self.scene = scene
         self.camera = camera
@@ -817,6 +877,24 @@ class RestirRenderer:
                     last_sdata=self.last_sdata, fb=self.fb, l1=self.l1,
                     prev_view=self._prev_view, prev_proj=self._prev_proj)
 
+    def update(self, camera: Camera | None = None) -> None:
+        """Refit the scene after ``Scene.set_transform`` (and optionally
+        move the camera) (:1110-1113): the world bake and the stream
+        accel's refit run on the renderer's device."""
+        if camera is not None:
+            self.camera = camera
+        self.scene_arrays = self.scene.flatten(self.materials,
+                                               prev=self.scene_arrays)
+
+    def _set_state(self, st: dict) -> None:
+        self.last_di = st["last_di"]
+        self.last_gi = st["last_gi"]
+        self.last_sdata = st["last_sdata"]
+        self.fb = st["fb"]
+        self.l1 = st["l1"]
+        self._prev_view = st["prev_view"]
+        self._prev_proj = st["prev_proj"]
+
     def render(self) -> None:
         """One progressive frame (:1115-1236)."""
         cfg = self.cfg
@@ -829,13 +907,7 @@ class RestirRenderer:
         t0 = time.perf_counter()
         st, occ = _frame_body(self.scene_arrays, self._camera_arrays(), cfg,
                               self._state(), frame)
-        self.last_di = st["last_di"]
-        self.last_gi = st["last_gi"]
-        self.last_sdata = st["last_sdata"]
-        self.fb = st["fb"]
-        self.l1 = st["l1"]
-        self._prev_view = st["prev_view"]
-        self._prev_proj = st["prev_proj"]
+        self._set_state(st)
         ov = occ.double().cpu().numpy()   # waits for the frame
         dt = time.perf_counter() - t0
         self.frame += 1
@@ -861,6 +933,30 @@ class RestirRenderer:
             mrays_per_s=rays_active / dt / 1e6,
             mray_lanes_per_s=lanes / dt / 1e6,
         )
+
+    def render_many(self, k: int) -> None:
+        """Render k frames and synchronise once at the end (:1238-1271):
+        the same frames as k ``render()`` calls, without the per-frame
+        host read of the ray accounting.  (Where GI compaction is on, each
+        bounce still reads its active count.)  Camera and scene stay fixed
+        across the batch; the metrics are per batch."""
+        if self.cfg.seed_mode == "time":
+            raise ValueError("render_many needs deterministic seed_mode="
+                             "'frame' (time advances per call, not per "
+                             "frame)")
+        cam = self._camera_arrays()
+        st = self._state()
+        t0 = time.perf_counter()
+        for i in range(int(k)):
+            st, _ = _frame_body(self.scene_arrays, cam, self.cfg, st,
+                                self.frame + i)
+        float(st["fb"].count[0])          # the one wait for the batch
+        dt = time.perf_counter() - t0
+        self._set_state(st)
+        self.frame += int(k)
+        self.metrics = dict(frame_time_s=dt / max(k, 1),
+                            fps=k / max(dt, 1e-9), frame=self.frame,
+                            batch_frames=int(k), batch_time_s=dt)
 
     def radiance(self) -> np.ndarray:
         """Linear image: accumulated shade, L1 passthrough for

@@ -1,9 +1,12 @@
 """Scene: meshes, materials, instances (port of
 royaltracer_dx_tpu/scene/scene.py:30-261).
 
-``add_obj`` (the OBJ loader) and the ``prev=`` refit path of ``flatten``
-are not ported yet.  On the card ``flatten`` always builds the stream
-accel: every trace there runs the stream kernels (ops/restir.py).
+On the card ``flatten`` always builds the stream accel: every trace there
+runs the stream kernels (ops/restir.py).  With ``prev`` (the previous
+frame's arrays) ``flatten`` is the per-frame refit: the object-space
+arrays stay cached on the device, ``_world_bake`` re-bakes world space
+there and the stream accel refits with the build's order, so no host work
+grows with the triangle count.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import numpy as np
 import torch
 
 from royaltracer_dx_tpu_torch.device import resolve_device
+from royaltracer_dx_tpu_torch.scene import obj_loader
 from royaltracer_dx_tpu_torch.scene.lights import collect_emissive_triangles
 from royaltracer_dx_tpu_torch.scene.lut import compute_ess_lut
 from royaltracer_dx_tpu_torch.scene.types import (
@@ -21,14 +25,7 @@ from royaltracer_dx_tpu_torch.scene.types import (
     SceneArrays,
 )
 
-# obj_loader.py:25-31 (the JAX package's default material)
-DEFAULT_MATERIAL = dict(
-    kd=(1.0, 1.0, 1.0, 1.0),
-    ks=(1.0, 1.0, 1.0),
-    ke=(0.0, 0.0, 0.0),
-    ni=1.0,
-    pr_pm_ps_pc=(1.0, 0.0, 0.0, 0.0),
-)
+DEFAULT_MATERIAL = obj_loader.DEFAULT_MATERIAL
 
 
 class Scene:
@@ -38,6 +35,7 @@ class Scene:
         self.instance_mesh: list[int] = []
         self.transforms: list[np.ndarray] = []
         self.prev_transforms: list[np.ndarray] = []
+        self._static = None
 
     def add_material(self, **mat) -> int:
         """Add a material dict; returns its global id (scene.py:40-46)."""
@@ -50,6 +48,19 @@ class Scene:
                  tri_material=None) -> int:
         """Add a mesh whose tri_material holds GLOBAL material ids."""
         self.meshes.append(MeshData(vertices, indices, normals, tri_material))
+        self._static = None
+        return len(self.meshes) - 1
+
+    def add_obj(self, path: str) -> int:
+        """Load an OBJ model; its local material ids are offset into the
+        global table (scene.py:60-75, ObjLoader.h:455-460)."""
+        data = obj_loader.load_obj(path)
+        offset = len(self._materials)
+        self._materials.extend(data["materials"])
+        self.meshes.append(MeshData(data["vertices"], data["indices"],
+                                    data["normals"],
+                                    data["tri_material"] + offset))
+        self._static = None
         return len(self.meshes) - 1
 
     def add_instance(self, mesh_id: int, transform=None) -> int:
@@ -58,6 +69,7 @@ class Scene:
         self.instance_mesh.append(mesh_id)
         self.transforms.append(np.asarray(transform, np.float32))
         self.prev_transforms.append(np.asarray(transform, np.float32))
+        self._static = None
         return len(self.instance_mesh) - 1
 
     def set_transform(self, instance_id: int, transform):
@@ -96,9 +108,12 @@ class Scene:
             self.meshes, self.instance_mesh, t["ke"], self.transforms,
             device=resolve_device(device))
 
-    def _object_static(self):
-        """Concatenated OBJECT-space triangle arrays + instance map
-        (scene.py:121-140), host numpy."""
+    def _object_static(self, dev: torch.device):
+        """Concatenated OBJECT-space triangle arrays + material and
+        instance maps on ``dev`` (scene.py:121-140), built once and cached
+        until a mesh or an instance is added."""
+        if self._static is not None and self._static[0].device == dev:
+            return self._static
         tv, tn, tm, ti = [], [], [], []
         for inst, mesh_id in enumerate(self.instance_mesh):
             mesh = self.meshes[mesh_id]
@@ -106,39 +121,42 @@ class Scene:
             tn.append(mesh.normals[mesh.indices])
             tm.append(mesh.tri_material)
             ti.append(np.full(mesh.num_triangles, inst, np.int32))
-        return (np.concatenate(tv).astype(np.float32),
-                np.concatenate(tn).astype(np.float32),
-                np.concatenate(tm).astype(np.int32),
-                np.concatenate(ti).astype(np.int32))
+        self._static = tuple(
+            torch.as_tensor(np.concatenate(a).astype(dt), device=dev)
+            for a, dt in ((tv, np.float32), (tn, np.float32),
+                          (tm, np.int32), (ti, np.int32)))
+        return self._static
 
     def flatten(self, materials: Materials | None = None,
                 build_stream: bool = False, stream_method: str = "median",
-                device=None) -> SceneArrays:
+                device=None, prev: SceneArrays | None = None) -> SceneArrays:
         """Bake instances into a world-space triangle soup on ``device``
-        (scene.py:142-209).  On CUDA the stream accel is always built."""
+        (scene.py:142-209).  On CUDA the stream accel is always built;
+        with ``prev`` it is refitted from ``prev.stream`` instead, on
+        ``prev``'s device."""
         from royaltracer_dx_tpu_torch.ops.stream_trace import (
             build_stream_accel,
+            refit_stream_accel,
         )
 
         if not self.instance_mesh:
             raise ValueError("scene has no instances")
-        dev = resolve_device(device)
+        dev = prev.device if prev is not None else resolve_device(device)
         if materials is None:
             materials = self.build_materials(device=dev)
-        obj_tv, obj_tn, tm, ti = self._object_static()
+        obj_tv, obj_tn, tm, ti = self._object_static(dev)
         xf = torch.as_tensor(np.stack(self.transforms), device=dev)
-        ti_t = torch.as_tensor(ti, device=dev)
-        tri_verts, tri_normals = _world_bake(
-            torch.as_tensor(obj_tv, device=dev),
-            torch.as_tensor(obj_tn, device=dev), ti_t, xf)
+        tri_verts, tri_normals = _world_bake(obj_tv, obj_tn, ti, xf)
         stream = None
-        if build_stream or dev.type == "cuda":
+        if prev is not None and prev.stream is not None:
+            stream = refit_stream_accel(prev.stream, tri_verts)
+        elif build_stream or dev.type == "cuda":
             stream = build_stream_accel(tri_verts, method=stream_method)
         return SceneArrays(
             tri_verts=tri_verts,
             tri_normals=tri_normals,
-            tri_material=torch.as_tensor(tm, device=dev),
-            tri_instance=ti_t,
+            tri_material=tm,
+            tri_instance=ti,
             materials=materials,
             lights=self.build_lights(device=dev),
             object_to_world=xf,

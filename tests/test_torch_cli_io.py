@@ -1,0 +1,265 @@
+"""The port's I/O and CLI against the JAX package: half-precision payload
+tables, checkpoint formats, AOVs, PNG and metrics, and
+``python -m royaltracer_dx_tpu_torch.cli``.  (A JAX checkpoint resumed
+by the port is in tests/test_torch_dynamic.py, beside the JAX frames it
+reuses.)
+
+Tolerances: packed f16/bf16 tables, PNG bytes and metrics are exact;
+AOVs use ``assert_lanes`` of tests/test_torch_restir.py (>= 99.9% of
+lanes equal in ids, floats within 1e-4 relative), because an ulp of
+XLA-vs-PyTorch drift can move a hit.
+"""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from royaltracer_dx_tpu.camera import Camera as JCamera
+from royaltracer_dx_tpu.config import RenderConfig as JConfig
+from royaltracer_dx_tpu.ops.reservoir import ReservoirDI, ReservoirGI, SampleData
+from royaltracer_dx_tpu.render import restir_renderer as jr
+from royaltracer_dx_tpu.render.aov import render_aovs as j_aovs
+from royaltracer_dx_tpu.scene import procedural as jproc
+from royaltracer_dx_tpu.utils import image as jimage
+from royaltracer_dx_tpu.utils import metrics as jmetrics
+
+from royaltracer_dx_tpu_torch import cli, convert
+from royaltracer_dx_tpu_torch.camera import Camera
+from royaltracer_dx_tpu_torch.config import RenderConfig
+from royaltracer_dx_tpu_torch.io import checkpoint as tck
+from royaltracer_dx_tpu_torch.render import restir_renderer as tr
+from royaltracer_dx_tpu_torch.render.aov import CHANNELS, render_aovs
+from royaltracer_dx_tpu_torch.scene import procedural as tproc
+from royaltracer_dx_tpu_torch.utils import image as timage
+from royaltracer_dx_tpu_torch.utils import metrics as tmetrics
+from test_torch_restir import (  # noqa: F401 (one_torch_thread: autouse)
+    assert_lanes,
+    jax_scene_dict,
+    one_torch_thread,
+    to_t,
+)
+
+W, H = 32, 27
+EYE, CENTER = (0.5, 0.5, 1.72), (0.5, 0.5, 0.0)
+
+
+# -------------------------- half-precision records -----------------------
+
+
+def _edge_state(n=4096, seed=3):
+    """Renderer state with the values where half precision bites: f16
+    underflow and overflow, exact round-to-nearest-even ties, -0.0, and
+    zero l1 / n2 / l2 rows (the flags)."""
+    rng = np.random.default_rng(seed)
+
+    def v3():
+        mag = 10.0 ** rng.uniform(-9, 6, (n, 1))
+        a = (rng.normal(size=(n, 3)) * mag).astype(np.float32)
+        a[::7] = 0.0
+        a[1::11] = -0.0
+        a[2::13] = np.float32(1.0 + 2.0 ** -11)     # f16 tie -> 1.0
+        a[3::13] = np.float32(1.0 + 3 * 2.0 ** -11)  # f16 tie -> up
+        a[4::13] = np.float32(1.0 + 2.0 ** -8)      # bf16 tie -> 1.0
+        a[5::13] = np.float32(70000.0)              # f16 overflow
+        return a
+
+    def s():
+        a = np.abs(rng.normal(size=n) * 10.0 ** rng.uniform(-9, 6, n))
+        a[::5] = 0.0
+        a[1::9] = 1e-8                              # f16 underflow
+        return a.astype(np.float32)
+
+    di = dict(x2=v3(), n2=v3(), l2=v3(), w_sum=s(), w=s(), m=s())
+    gi = dict(xn=v3(), nn=v3(), e3=v3(), w_sum=s(), w=s(), m=s())
+    sd = dict(x1=v3(), n1=v3(), o=v3(), l1=v3(),
+              mid=rng.integers(-2, 200, n).astype(np.int32),
+              obj=rng.integers(0, 40, n).astype(np.int32))
+    return di, gi, sd
+
+
+def _bits(x):
+    if torch.is_tensor(x):
+        return x.view(torch.int16).numpy().view(np.uint16)
+    return np.asarray(x).view(np.uint16)
+
+
+@pytest.mark.parametrize("dtype", ["f16", "bf16"])
+def test_packed_half_tables_bit_equal(dtype):
+    di, gi, sd = _edge_state()
+    jd = {"f16": jnp.float16, "bf16": jnp.bfloat16}[dtype]
+    jp = jr._pack_last(ReservoirDI(**{k: jnp.asarray(v) for k, v in di.items()}),
+                       ReservoirGI(**{k: jnp.asarray(v) for k, v in gi.items()}),
+                       SampleData(**{k: jnp.asarray(v) for k, v in sd.items()}),
+                       jd)
+    tp = tr._pack_last({k: torch.as_tensor(v) for k, v in di.items()},
+                       {k: torch.as_tensor(v) for k, v in gi.items()},
+                       {k: torch.as_tensor(v) for k, v in sd.items()},
+                       tr._REC_DTYPES[dtype])
+    for rec_t, rec_j in zip(tp, jp):
+        for a, b in zip(rec_t, rec_j):
+            assert a.dtype == tr._REC_DTYPES[dtype]
+            np.testing.assert_array_equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("dtype,count", [("bf16", 256), ("f16", 2048)])
+def test_half_record_id_guard(dtype, count):
+    """Half-precision ids are exact below 2^(mantissa + 1): bf16 rejects
+    256 materials, f16 (and every dtype's f16 accept tables) 2048."""
+    scene = tproc.cornell_box()
+    while len(scene._materials) < count:
+        scene.add_material(kd=(0.5, 0.5, 0.5, 1.0))
+    with pytest.raises(ValueError, match="< "):
+        tr.RestirRenderer(scene, Camera(eye=EYE, center=CENTER),
+                          RenderConfig(width=8, height=8,
+                                       record_dtype=dtype), device="cpu")
+
+
+# ------------------------------ checkpoint -------------------------------
+
+
+@pytest.mark.parametrize("fmt,names", [("megakernel", "A'6"),
+                                       ("sharded_restir", "A'9")])
+def test_unported_checkpoint_formats_raise(tmp_path, fmt, names):
+    path = str(tmp_path / "x.npz")
+    np.savez(path, format=np.asarray(fmt), frame=np.asarray(1),
+             **{"fb.accum": np.zeros((64, 3), np.float32)})
+    r = tr.RestirRenderer(tproc.cornell_box(), Camera(eye=EYE, center=CENTER),
+                          RenderConfig(width=8, height=8), device="cpu")
+    with pytest.raises(ValueError, match=f"{fmt}.*{names}"):
+        tck.load_renderer_state(path, r)
+
+
+def test_checkpoint_resolution_mismatch_raises(tmp_path):
+    path = str(tmp_path / "x.npz")
+    cam = Camera(eye=EYE, center=CENTER)
+    tck.save_renderer_state(path, tr.RestirRenderer(
+        tproc.cornell_box(), cam, RenderConfig(width=8, height=6),
+        device="cpu"))
+    r = tr.RestirRenderer(tproc.cornell_box(), cam,
+                          RenderConfig(width=8, height=8), device="cpu")
+    with pytest.raises(ValueError, match="resolution"):
+        tck.load_renderer_state(path, r)
+
+
+# --------------------------------- AOVs ----------------------------------
+
+
+def test_aovs_match_jax():
+    jscene = jproc.cornell_box(emission=18.0)
+    jsa = jscene.flatten(jscene.build_materials(with_lut=False))
+    cam = JCamera(eye=EYE, center=CENTER)
+    jcam = {k: jnp.asarray(v) for k, v in cam.matrices(W / H).items()}
+    cfg = JConfig(width=W, height=H)
+    ref = j_aovs(jsa, jcam, cfg)
+    scene = convert.scene_arrays_from_numpy(jax_scene_dict(jsa), device="cpu")
+    out = render_aovs(scene, to_t(jcam), RenderConfig(width=W, height=H))
+    assert set(out) == set(CHANNELS) == set(ref)
+    assert_lanes(out, {k: np.asarray(v) for k, v in ref.items()})
+    mid = out["material_id"]
+    assert int(mid.max()) >= 1 and int((mid == -1).sum()) == int(
+        (np.asarray(ref["material_id"]) == -1).sum())
+
+
+# ---------------------------- PNG and metrics ----------------------------
+
+
+def _read_png(path):
+    """Decode an 8-bit RGB PNG of unfiltered rows, as write_png writes."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as fh:
+        data = fh.read()
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h = struct.unpack(">II", body[:8])
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    assert (rows[:, 0] == 0).all()
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def test_write_png_matches_jax(tmp_path):
+    rng = np.random.default_rng(0)
+    for img in (rng.uniform(-0.2, 1.2, (9, 7, 3)).astype(np.float32),
+                rng.integers(0, 256, (5, 6, 3)).astype(np.uint8),
+                rng.uniform(0, 1, (4, 3)).astype(np.float32)):
+        a, b = str(tmp_path / "t.png"), str(tmp_path / "j.png")
+        timage.write_png(a, img)
+        jimage.write_png(b, img)
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            assert fa.read() == fb.read()
+        back = _read_png(a)
+        want = img if img.dtype == np.uint8 else (
+            np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8)
+        if want.ndim == 2:
+            want = np.repeat(want[:, :, None], 3, axis=2)
+        np.testing.assert_array_equal(back, want)
+
+
+def test_metrics_match_jax():
+    rng = np.random.default_rng(1)
+    a = rng.uniform(0, 2, (12, 10, 3))
+    b = a + rng.normal(0, 0.05, a.shape)
+    assert tmetrics.rmse_report(a, b) == jmetrics.rmse_report(a, b)
+    assert timage.rmse(a, b) == jimage.rmse(a, b) == tmetrics.rmse(a, b)
+    assert tmetrics.rel_mean(a, b) == jmetrics.rel_mean(a, b)
+
+
+# ---------------------------------- CLI ----------------------------------
+
+
+def test_cli_smoke_and_resume(tmp_path, capsys):
+    """tests/test_io_cli.py:84 for the port: cornell at 16x16 on the CPU
+    with a checkpoint, snapshots and every AOV, then a resumed run whose
+    frame counter continues."""
+    out = str(tmp_path / "o.png")
+    ck = str(tmp_path / "ck.npz")
+    argv = ["--cpu", "--scene", "cornell", "--width", "16", "--height",
+            "16", "--out", out, "--checkpoint", ck]
+    res = cli.main(argv + ["--frames", "2", "--snapshot-every", "1",
+                           "--aov", "all"])
+    assert res["renderer"].frame == 2 and len(res["frame_ms"]) == 2
+    for name in ["o.png", "ck.npz", "o_00001.png", "o_00002.png"] + [
+            f"o.{c}.png" for c in CHANNELS]:
+        assert os.path.exists(tmp_path / name), name
+    res = cli.main(argv + ["--frames", "1"])
+    assert "resumed from" in capsys.readouterr().out
+    assert res["renderer"].frame == 3
+    assert float(res["renderer"].fb.count.max()) == 3.0
+
+
+def test_cli_animate_and_profile(tmp_path):
+    res = cli.main(["--cpu", "--scene", "menger", "--width", "16",
+                    "--height", "8", "--frames", "1", "--animate",
+                    "--out", str(tmp_path / "m.png"),
+                    "--profile", str(tmp_path / "prof")])
+    assert len(res["refit_ms"]) == 1
+    r = res["renderer"]
+    assert np.asarray(r.scene.transforms[1])[0, 2] != 0.0   # rotated
+    assert os.path.exists(tmp_path / "prof" / "trace.json")
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--renderer", "megakernel"], "A'6"),
+    (["--devices", "2"], "A'9"),
+    (["--bvh"], "A'11"),
+    (["--traversal", "cluster"], "A'11"),
+])
+def test_cli_unported_options_raise(argv, item):
+    with pytest.raises(NotImplementedError, match=item):
+        cli.main(["--cpu", "--frames", "1", *argv])
+
+
+def test_cli_reference_scene_needs_its_files(tmp_path, monkeypatch):
+    monkeypatch.setattr(cli, "REFERENCE_INCLUDE", str(tmp_path))
+    with pytest.raises(FileNotFoundError):
+        cli.build_scene("reference")

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card.
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+card's refit, half-precision records, GI compaction and render_many
+against the CPU forms or against themselves, on the card.
 
 These tests import neither JAX nor the JAX package, so they also run on
 a machine without JAX.  The repository's conftest.py imports JAX, so run
@@ -124,3 +125,77 @@ def test_cuda_hits_match_brute():
     assert int((occ != tit.any_hit_brute(ot, dt, tv, 1e-4, tm)).sum()) \
         <= n // 1000
     assert not occ[::3].any()
+
+
+@pytest.mark.gpu
+def test_cuda_refit_matches_cpu():
+    """Build and refit on the card equal build and refit on the CPU (the
+    CPU forms are held against the JAX package by the CPU tests)."""
+    dev = _card()
+    tris, _, _, _ = _scene_and_rays(16)
+    moved = tris + np.float32([0.1, -0.2, 0.05])
+    out = []
+    for d in (dev, torch.device("cpu")):
+        acc = tst.build_stream_accel(torch.as_tensor(tris, device=d))
+        out.append(tst.refit_stream_accel(acc, torch.as_tensor(moved,
+                                                               device=d)))
+    for f in ("perm", "blk_tris", "blk_boxes", "top_lo", "top_hi"):
+        np.testing.assert_array_equal(getattr(out[0], f).cpu().numpy(),
+                                      getattr(out[1], f).numpy(), err_msg=f)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f16", "bf16"])
+def test_cuda_half_records_match_cpu(dtype):
+    from royaltracer_dx_tpu_torch.render import restir_renderer as tr
+
+    dev = _card()
+    rng = np.random.default_rng(9)
+    n = 4096
+
+    def state(keys):
+        return {k: (rng.normal(size=(n, 3)) * 10.0 ** rng.uniform(
+            -9, 6, (n, 1))).astype(np.float32) for k in keys}
+
+    di = dict(state(("x2", "n2", "l2")),
+              **{k: np.abs(rng.normal(size=n)).astype(np.float32)
+                 for k in ("w_sum", "w", "m")})
+    gi = dict(state(("xn", "nn", "e3")),
+              **{k: np.abs(rng.normal(size=n)).astype(np.float32)
+                 for k in ("w_sum", "w", "m")})
+    sd = dict(state(("x1", "n1", "o", "l1")),
+              mid=rng.integers(-2, 200, n).astype(np.int32),
+              obj=rng.integers(0, 40, n).astype(np.int32))
+    packs = [tr._pack_last(*({k: torch.as_tensor(v, device=d)
+                              for k, v in x.items()} for x in (di, gi, sd)),
+                           tr._REC_DTYPES[dtype])
+             for d in (dev, torch.device("cpu"))]
+    for rec_c, rec_h in zip(*packs):
+        for a, b in zip(rec_c, rec_h):
+            assert torch.equal(a.cpu().view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_cuda_compaction_and_render_many_bit_identical():
+    """On the card: compacted GI bounces give the uncompacted frames bit
+    for bit, and render_many(2) gives two render() calls bit for bit."""
+    from royaltracer_dx_tpu_torch.config import RenderConfig
+    from royaltracer_dx_tpu_torch.render.restir_renderer import RestirRenderer
+    from royaltracer_dx_tpu_torch.scene.procedural import menger_scene
+
+    _card()
+    states = {}
+    for key, mode, many in (("on", "on", False), ("off", "off", False),
+                            ("many", "off", True)):
+        scene, camera = menger_scene()
+        r = RestirRenderer(scene, camera, RenderConfig(
+            width=128, height=96, gi_compaction=mode))
+        if many:
+            r.render_many(2)
+        else:
+            r.render()
+            r.render()
+        states[key] = r.state_dict()
+    for key in ("on", "many"):
+        for k, v in states["off"].items():
+            np.testing.assert_array_equal(states[key][k], v, err_msg=k)

@@ -122,6 +122,19 @@ def image_close(a, b):
 # ------------------------------ fixtures ---------------------------------
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One PyTorch intra-op thread for this module's tests: at these tiny
+    sizes more threads gain nothing, and under pytest-xdist several
+    workers share the host's cores (8 threads each made some tests 10x
+    slower).  Restored after the module.  Imported by the other
+    tests/test_torch_*.py modules that run frames."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jax_frames():
     """JAX Cornell renderer after one frame, plus the inputs and outputs
@@ -280,13 +293,26 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("kw", [dict(traversal="bvh"),
-                                dict(traversal="cluster"),
-                                dict(gi_compaction="on"),
-                                dict(record_dtype="f16")])
+                                dict(traversal="cluster")])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         tr.RestirRenderer(cornell_box(), Camera(eye=EYE, center=CENTER),
                           RenderConfig(width=8, height=8, **kw), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(gi_compaction="on"),
+                                dict(record_dtype="f16")])
+def test_ported_options_render(kw):
+    """Options that raised before their slice was ported now render: a
+    finite, lit frame whose state matches the default options' shapes."""
+    r = tr.RestirRenderer(cornell_box(emission=18.0),
+                          Camera(eye=EYE, center=CENTER),
+                          RenderConfig(width=16, height=16, **kw),
+                          device="cpu")
+    r.render()
+    img = r.radiance()
+    assert np.isfinite(img).all() and img.mean() > 0.05
+    assert r.frame == 1 and float(r.fb.count.max()) == 1.0
 
 
 def test_port_imports_no_jax():
@@ -294,6 +320,14 @@ def test_port_imports_no_jax():
         "import sys, royaltracer_dx_tpu_torch\n"
         "import royaltracer_dx_tpu_torch.render.restir_renderer\n"
         "import royaltracer_dx_tpu_torch.convert\n"
+        "import royaltracer_dx_tpu_torch.cli\n"
+        "import royaltracer_dx_tpu_torch.io.checkpoint\n"
+        "import royaltracer_dx_tpu_torch.scene.assets\n"
+        "import royaltracer_dx_tpu_torch.scene.obj_loader\n"
+        "import royaltracer_dx_tpu_torch.render.aov\n"
+        "import royaltracer_dx_tpu_torch.native\n"
+        "import royaltracer_dx_tpu_torch.utils.image\n"
+        "import royaltracer_dx_tpu_torch.utils.metrics\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'royaltracer_dx_tpu'"
         " or m.startswith('royaltracer_dx_tpu.')]\n"
