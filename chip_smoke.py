@@ -49,13 +49,34 @@ Phases (any failure exits non-zero and prints no result line):
               camera rays and on the shadow batch of bench.py:491-511;
               (d) render_many(3) against 3 render() calls on a 256x256
               menger frame, bit for bit.
-  5. the {"kernels": [...]} line, then the {"ok": true, ...} line.
+  5. oracles  the megakernel Renderer and the DiOracle, each path with
+              the launch counters set to 0 just before it and read just
+              after: (a) sponza at 1920x1080 through cli.main
+              --renderer megakernel (5 bounces) for 3 frames with
+              --checkpoint, then 1 resumed frame; one more frame with
+              timed launches, one line per batch (the walk per live
+              chunk, lanes whose shadow t_min is NaN), each kernel
+              against its plain version on that frame's largest batch,
+              and the any-hit walk beside phase 4's ReSTIR sponza frame;
+              (b) bench.py's cornell_megakernel row (512x512, 5
+              bounces): frame ms and Mrays/s; (c) Renderer.render_many(3)
+              against 3 render() calls on a 256x256 menger frame, bit for
+              bit, and DiOracle.render_many against render() calls; (d)
+              the accuracy rows of bench.py:400-440, time-capped above
+              the CPU harness's frame counts: the DiOracle against DI-only
+              ReSTIR at 64x64 (bars 0.97 < rel_mean < 1.03, rmse < 0.05)
+              and the quirk-free 5-bounce megakernel against ReSTIR at
+              96x96 (0.94 < rel_mean < 1.04, rmse < 0.08), printed beside
+              BENCH_r05.json's rows for the JAX package; (e) two 96x54
+              megakernel menger frames on the card against the CPU.
+  6. the {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 --out DIR writes the rendered images there as PNGs (else the scenes
 phase writes its CLI outputs into a temporary directory).  --profile runs
 one more menger frame under torch.profiler and prints the device's busy
 time and its time by kernel name (with --out, also the gzipped Chrome
-trace), and one more sponza and dragon frame each in phase 4.  The
+trace), and one more sponza and dragon frame each in phase 4 and one
+more megakernel sponza frame in phase 5.  The
 script imports nothing of JAX: it runs the port alone.
 """
 
@@ -64,6 +85,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -332,15 +354,17 @@ def phase_kernels(dev, menger_arrays):
 
 
 def on_card(r) -> list:
-    """Names of renderer state tensors that do not live on the card."""
-    items = {f"last_di.{k}": v for k, v in r.last_di.items()}
-    items.update({f"last_gi.{k}": v for k, v in r.last_gi.items()})
-    items.update({f"last_sdata.{k}": v for k, v in r.last_sdata.items()})
-    items.update({"fb.accum": r.fb.accum, "fb.count": r.fb.count,
-                  "l1": r.l1, "prev_view": r._prev_view,
-                  "prev_proj": r._prev_proj,
-                  "tri_verts": r.scene_arrays.tri_verts,
-                  "blk_tris": r.scene_arrays.stream.blk_tris})
+    """Names of renderer state tensors (a RestirRenderer's or a megakernel
+    Renderer's) that do not live on the card."""
+    items = {"fb.accum": r.fb.accum, "fb.count": r.fb.count,
+             "prev_view": r._prev_view,
+             "tri_verts": r.scene_arrays.tri_verts,
+             "blk_tris": r.scene_arrays.stream.blk_tris}
+    for name in ("last_di", "last_gi", "last_sdata"):
+        items.update({f"{name}.{k}": v
+                      for k, v in getattr(r, name, {}).items()})
+    if hasattr(r, "l1"):
+        items.update(l1=r.l1, prev_proj=r._prev_proj)
     return [k for k, v in items.items()
             if not (torch.is_tensor(v) and v.is_cuda)]
 
@@ -403,7 +427,8 @@ def profile_frame(renderer):
         work.update(
             chunks=int(cnt.shape[0]), live_chunks=int(live.sum()),
             live_lanes=int(((rows[:, 8] > 0.5)
-                            & (rows[:, 7] > rows[:, 6])).sum()))
+                            & (rows[:, 7] > rows[:, 6])).sum()),
+            nan_tmin_lanes=int(torch.isnan(rows[:, 6]).sum()))
         events.append((name, rows.shape[0], start, end, work))
         if rows.shape[0] > largest.get(name, (0,))[0]:
             largest[name] = (rows.shape[0], (rows, wl, went, cnt, blk_tris,
@@ -429,23 +454,50 @@ def profile_frame(renderer):
     return ms, per_kernel, largest
 
 
-def small_frames_agree(devices=("cuda", "cpu"), size=(96, 54), frames=2):
+def print_batches(batches, rates) -> float:
+    """One line per launch of a frame: time, bound and the walk per live
+    chunk.  Returns the frame's summed bound."""
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+
+    frame_bound = 0.0
+    for b in batches:
+        b.update(st.bound_ms(b, *rates))
+        frame_bound += b["bound_ms"]
+        live = max(b["live_chunks"], 1)
+        print(f"    batch {b['lanes']} lanes: {b['ms']:.3f} ms, bound "
+              f"{b['bound_ms']:.3f} ms ({b['bound_by']}); chunks with an "
+              f"empty worklist {1.0 - b['live_chunks'] / b['chunks']:.4f}"
+              f"; per live chunk: blocks visited "
+              f"{b['blocks_visited'] / live:.3f}, hot clusters "
+              f"{b['clusters_tested'] / live:.3f}, candidate pairs "
+              f"{b['pairs'] / live:.2f}; valid lanes "
+              f"{b['valid_lanes'] / b['lanes']:.4f}, live lanes "
+              f"{b['live_lanes'] / b['lanes']:.4f}, NaN t_min lanes "
+              f"{b['nan_tmin_lanes']}", flush=True)
+    return frame_bound
+
+
+def small_frames_agree(devices=("cuda", "cpu"), size=(96, 54), frames=2,
+                       megakernel=False):
     """The same small menger frames on the card and on the CPU, where
     every kernel wrapper runs its plain version and the passes are held
     against the JAX package by tests/test_torch_*.py.  Tolerance, as in
     those tests: >= 99% of pixels within 1e-3 and per-channel means within
     0.5%, because an ulp of difference in cos/sin/sqrt between the two
-    devices can flip an RIS pick.  Returns (pixel share, mean deviation)."""
+    devices can flip an RIS pick.  ``megakernel``: the megakernel Renderer
+    (5 bounces) instead of the RestirRenderer.  Returns (pixel share, mean
+    deviation)."""
     from royaltracer_dx_tpu_torch.config import RenderConfig
+    from royaltracer_dx_tpu_torch.render.renderer import Renderer
     from royaltracer_dx_tpu_torch.render.restir_renderer import RestirRenderer
     from royaltracer_dx_tpu_torch.scene.procedural import menger_scene
 
+    cls = Renderer if megakernel else RestirRenderer
     imgs = []
     for dev in devices:
         scene, camera = menger_scene()
-        r = RestirRenderer(scene, camera, RenderConfig(width=size[0],
-                                                       height=size[1]),
-                           device=dev)
+        r = cls(scene, camera, RenderConfig(width=size[0], height=size[1],
+                                            max_bounces=5), device=dev)
         for _ in range(frames):
             r.render()
         imgs.append(r.radiance())
@@ -456,7 +508,8 @@ def small_frames_agree(devices=("cuda", "cpu"), size=(96, 54), frames=2):
                   .all(axis=-1).mean())
     ma, mb = a.reshape(-1, 3).mean(0), b.reshape(-1, 3).mean(0)
     dev_mean = float((np.abs(ma - mb) / np.abs(mb)).max())
-    print(f"  {size[0]}x{size[1]} menger, {frames} frames, {devices[0]} vs "
+    print(f"  {size[0]}x{size[1]} menger {cls.__name__}, {frames} frames, "
+          f"{devices[0]} vs "
           f"{devices[1]}: {share:.4f} of pixels within 1e-3, channel means "
           f"within {dev_mean:.2e}", flush=True)
     if share < 0.99 or dev_mean > 5e-3:
@@ -565,6 +618,8 @@ def kernel_vs_plain(label, name, call, out, rates, mismatches):
     cuda_ms(lambda: kern(*call))                           # warm
     ms, _ = cuda_ms(lambda: kern(*call), reps=5)
     work = st.stream_work(*call, out[2])
+    work["blocks_per_live_chunk"] = (work["blocks_visited"]
+                                     / max(int((call[3] > 0).sum()), 1))
     bound = st.bound_ms(work, *rates)
     print(f"  {label} {name}: largest batch {mm['lanes']} lanes, equal to "
           f"the plain version ({mm['ties']} exact-t ties); kernel {ms:.3f} "
@@ -576,12 +631,14 @@ def kernel_vs_plain(label, name, call, out, rates, mismatches):
                 max_abs_err=mm["max_abs_err"], **bound, work=work)
 
 
-def scene_frame(label, renderer, rates, mismatches, profile_dir=None):
+def scene_frame(label, renderer, rates, mismatches, profile_dir=None,
+                batches=False):
     """One more frame of ``renderer`` with timed launches and timed
     prepare_stream calls; each kernel against its plain version on that
     frame's largest batch.  With ``profile_dir`` (None: no profile; "":
-    no trace file) first one frame under torch.profiler.  Returns
-    (per-kernel entries, frame info, largest calls)."""
+    no trace file) first one frame under torch.profiler; with ``batches``
+    one line per launch.  Returns (per-kernel entries, frame info,
+    largest calls)."""
     profile = None
     if profile_dir is not None:
         print(f"  {label} profiled frame:", flush=True)
@@ -599,15 +656,22 @@ def scene_frame(label, renderer, rates, mismatches, profile_dir=None):
     entries = {}
     for name in KERNELS:
         pk = per_kernel[name]
-        frame_bound = sum(st.bound_ms(b, *rates)["bound_ms"]
-                          for b in pk["batches"])
+        if batches:
+            print(f"  {label} {name} batches:", flush=True)
+            frame_bound = print_batches(pk["batches"], rates)
+        else:
+            frame_bound = sum(st.bound_ms(b, *rates)["bound_ms"]
+                              for b in pk["batches"])
         print(f"  {label} {name}: {pk['frame_launches']} launches, "
               f"{pk['frame_ms']:.3f} ms per frame (bound {frame_bound:.3f} "
               "ms)", flush=True)
         _, call, out = largest[name]
         e = kernel_vs_plain(label, name, call, out, rates, mismatches)
         e.update(frame_ms=pk["frame_ms"], frame_launches=pk["frame_launches"],
-                 frame_bound_ms=frame_bound)
+                 frame_bound_ms=frame_bound,
+                 frame_blocks_per_live_chunk=sum(
+                     b["blocks_visited"] for b in pk["batches"])
+                 / max(sum(b["live_chunks"] for b in pk["batches"]), 1))
         entries[name] = e
     info = dict(timed_frame_ms=prof_ms, prepare_calls=len(prep),
                 prepare_ms=sum(x["ms"] for x in prep),
@@ -860,6 +924,236 @@ def phase_scenes(out_dir, rates, mismatches, profile_dir=None):
     return out, entries
 
 
+# ------------------------------ phase 5 ----------------------------------
+
+
+def jax_accuracy_rows() -> dict:
+    """The JAX package's accuracy rows (bench.py:400-440) as its round-5
+    benchmark run recorded them in BENCH_r05.json."""
+    with open(os.path.join(ROOT, "BENCH_r05.json")) as f:
+        tail = json.load(f)["tail"]
+    out = {}
+    for key in ("rmse_di_vs_dioracle_64", "rmse_vs_oracle"):
+        m = re.search('"%s": ({[^}]*})' % key, tail)
+        out[key] = json.loads(m.group(1)) if m else None
+    return out
+
+
+def run_frames(r, budget_s, min_frames, max_frames, chunk):
+    """``render_many(chunk)`` until at least ``min_frames`` are done and
+    ``budget_s`` has passed, or ``max_frames`` are done (bench.py:386-397
+    with a floor: the frames of the CPU harness).  Returns (frames, s)."""
+    t0 = time.perf_counter()
+    done = 0
+    while done < max_frames and (done < min_frames
+                                 or time.perf_counter() - t0 < budget_s):
+        r.render_many(chunk)
+        done += chunk
+    torch.cuda.synchronize()
+    return done, time.perf_counter() - t0
+
+
+def accuracy_row(label, oracle, cand, bars, jax_row):
+    """rmse and rel_mean of ``cand`` against ``oracle`` (both (renderer,
+    budget_s, min_frames, max_frames, chunk)); fails outside ``bars`` =
+    (rel_mean low, rel_mean high, rmse high)."""
+    from royaltracer_dx_tpu_torch.utils.metrics import rel_mean, rmse
+
+    reset_launches()
+    imgs, frames, secs = [], [], []
+    for r, *plan in (oracle, cand):
+        n, t = run_frames(r, *plan)
+        imgs.append(r.radiance())
+        frames.append(n)
+        secs.append(t)
+    launches = read_launches(label)
+    a, b = imgs
+    if not (np.isfinite(a).all() and np.isfinite(b).all()):
+        fail(f"{label}: non-finite radiance")
+    row = dict(rmse=rmse(b, a), rel_mean=rel_mean(b, a), frames=frames,
+               seconds=secs, launches=launches,
+               bars=dict(rel_mean=bars[:2], rmse=bars[2]))
+    print(f"  {label}: rmse {row['rmse']!r}, rel_mean {row['rel_mean']!r} "
+          f"(bars {bars[0]} < rel_mean < {bars[1]}, rmse < {bars[2]}); "
+          f"frames reached {frames} in {[round(t, 1) for t in secs]} s; "
+          f"the JAX package (BENCH_r05.json, its round-5 bench.py run): "
+          f"{jax_row}", flush=True)
+    if not (bars[0] < row["rel_mean"] < bars[1] and row["rmse"] < bars[2]):
+        fail(f"{label}: outside its bars")
+    return row
+
+
+def phase_oracles(out_dir, rates, mismatches, restir_sponza,
+                  profile_dir=None):
+    """Phase 5: the megakernel Renderer and the DiOracle on the card.
+    ``restir_sponza``: phase 4's sponza entries per kernel, for the walk
+    of the ReSTIR frame's any-hit batch beside the megakernel's;
+    ``profile_dir`` as for ``scene_frame``."""
+    from royaltracer_dx_tpu_torch.camera import Camera, generate_rays
+    from royaltracer_dx_tpu_torch.config import RenderConfig
+    from royaltracer_dx_tpu_torch.render import megakernel
+    from royaltracer_dx_tpu_torch.render.di_oracle import DiOracle
+    from royaltracer_dx_tpu_torch.render.renderer import Renderer
+    from royaltracer_dx_tpu_torch.render.restir_renderer import RestirRenderer
+    from royaltracer_dx_tpu_torch.scene.procedural import (
+        cornell_box,
+        menger_scene,
+    )
+    from royaltracer_dx_tpu_torch.utils.rng import pixel_seed
+
+    out = {}
+    entries = {k: {} for k in KERNELS}
+    dev = torch.device("cuda")
+
+    # ---- (a) sponza through the CLI with --renderer megakernel
+    size = ["--width", "1920", "--height", "1080"]
+    png = os.path.join(out_dir, "sponza_megakernel.png")
+    ck = os.path.join(out_dir, "sponza_megakernel_ckpt.npz")
+    if os.path.exists(ck):
+        os.remove(ck)
+    argv = ["--renderer", "megakernel", "--scene", "sponza", *size,
+            "--checkpoint", ck, "--out", png]
+    res, launches, peak, secs = cli_scene("sponza megakernel",
+                                          argv + ["--frames", "3"], 3)
+    r = res["renderer"]
+    if type(r).__name__ != "Renderer" or not os.path.exists(ck):
+        fail("sponza megakernel: the CLI did not run the megakernel "
+             "Renderer or write its checkpoint")
+    m = r.metrics
+    frame_ms = res["frame_ms"]
+    print(f"  sponza megakernel: cli.main {secs:.1f} s, {r.cfg.max_bounces} "
+          f"bounces, frames {[round(x, 3) for x in frame_ms]} ms, "
+          f"last frame {m['rays_traced']:.0f} rays, "
+          f"{m['mrays_per_s']:.2f} Mrays/s; peak memory {peak:.2f} GiB; "
+          f"launches {launches} = {[launches[k] / 3 for k in KERNELS]} per "
+          "frame", flush=True)
+    del r, res
+    res2, launches2, _, secs2 = cli_scene("sponza megakernel resumed",
+                                          argv + ["--frames", "1"], 4)
+    r = res2["renderer"]
+    print(f"  sponza megakernel resumed from the checkpoint: frame counter "
+          f"{r.frame}, fb.count 4; frame {res2['frame_ms'][0]:.3f} ms, "
+          f"{r.metrics['mrays_per_s']:.2f} Mrays/s; launches {launches2}",
+          flush=True)
+    e, info, _ = scene_frame("sponza megakernel", r, rates, mismatches,
+                             profile_dir, batches=True)
+    for k in KERNELS:
+        entries[k]["sponza_megakernel"] = dict(e[k], launches=launches[k])
+    walk = dict(
+        megakernel_frame=e["stream_any"]["frame_blocks_per_live_chunk"],
+        megakernel_largest=e["stream_any"]["work"]["blocks_per_live_chunk"],
+        restir_frame=restir_sponza["stream_any"].get(
+            "frame_blocks_per_live_chunk"),
+        restir_largest=restir_sponza["stream_any"]["work"][
+            "blocks_per_live_chunk"])
+    print(f"  any-hit walk, blocks visited per live chunk on sponza: "
+          f"megakernel frame {walk['megakernel_frame']:.3f} (its first "
+          f"shadow batch {walk['megakernel_largest']:.3f}); ReSTIR frame "
+          f"{walk['restir_frame']:.3f} (its largest batch "
+          f"{walk['restir_largest']:.3f}, phase 4)", flush=True)
+    out["sponza_megakernel"] = dict(
+        frame_ms=frame_ms, peak_gib=peak,
+        launches=launches, resumed_frame_ms=res2["frame_ms"],
+        metrics=dict(r.metrics), walk=walk, **info)
+    del r, res2
+    torch.cuda.empty_cache()
+
+    # ---- (b) the cornell_megakernel row of bench.py:721-741
+    reset_launches()
+    cfg = RenderConfig(width=512, height=512, max_bounces=5)
+    scene = cornell_box()
+    sa = scene.flatten(scene.build_materials(device=dev), device=dev)
+    cam = Camera(eye=(0.5, 0.6, 2.2), center=(0.5, 0.5, 0.0))
+    ca = {k: torch.as_tensor(v, device=dev)
+          for k, v in cam.matrices(1.0).items()}
+    mo, md = generate_rays(ca, 512, 512)
+    ys, xs = torch.meshgrid(torch.arange(512, device=dev),
+                            torch.arange(512, device=dev), indexing="ij")
+    seeds = pixel_seed(xs.reshape(-1), ys.reshape(-1), 2, 1)
+    times = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        rad, rays = megakernel.trace_paths(sa, mo, md, seeds, cfg)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches("cornell_megakernel")
+    if not bool(torch.isfinite(rad).all()) or float(rad.mean()) <= 0.0:
+        fail("cornell_megakernel: radiance is not finite and positive")
+    best = min(times[1:])
+    row = dict(frame_ms=best, mrays=float(rays) / best / 1e3,
+               rays=float(rays), reps_ms=times, launches=launches)
+    print(f"  cornell_megakernel (512x512, 5 bounces, bench.py:721-741): "
+          f"frame {best:.3f} ms (best of {[round(t, 3) for t in times[1:]]}"
+          f" after a warm-up {times[0]:.1f} ms), {row['rays']:.0f} rays, "
+          f"{row['mrays']:.2f} Mrays/s; launches {launches}", flush=True)
+    out["cornell_megakernel"] = row
+    del sa, rad
+    torch.cuda.empty_cache()
+
+    # ---- (c) render_many against render(), both oracles
+    reset_launches()
+    states = []
+    for many in (True, False):
+        mscene, mcam = menger_scene()
+        r = Renderer(mscene, mcam, RenderConfig(width=256, height=256,
+                                                max_bounces=5))
+        if many:
+            r.render_many(3)
+        else:
+            for _ in range(3):
+                r.render()
+        states.append(r.state_dict())
+    diff_keys = [k for k in states[0]
+                 if not np.array_equal(states[0][k], states[1][k])]
+    hcam = Camera(eye=(0.5, 0.5, 1.72), center=(0.5, 0.5, 0.0))
+    di = [DiOracle(cornell_box(emission=18.0), hcam,
+                   RenderConfig(width=64, height=64)) for _ in range(3)]
+    for _ in range(4):
+        di[0].render()
+        di[1].render_many(1)
+    di[2].render_many(4)
+    launches = read_launches("render_many")
+    di_same = bool(torch.equal(di[0]._acc, di[1]._acc))
+    di_err = float(np.abs(di[2].radiance() - di[0].radiance()).max())
+    print(f"  render_many: Renderer render_many(3) vs 3 render() on 256x256 "
+          f"menger, state arrays that differ {diff_keys}; DiOracle on 64x64 "
+          f"cornell: 4 x render_many(1) vs 4 x render() bit-equal {di_same}"
+          f", render_many(4) (float32 partial sum) within {di_err!r}; "
+          f"launches {launches}", flush=True)
+    if diff_keys or not di_same or di_err > 1e-5:
+        fail("render_many differs from render() calls")
+    out["render_many"] = dict(megakernel_bit_equal=True, di_bit_equal=True,
+                              di_batch_max_err=di_err, launches=launches)
+    del di, r
+    torch.cuda.empty_cache()
+
+    # ---- (d) the accuracy rows of bench.py:400-440, time-capped
+    jrows = jax_accuracy_rows()
+    w3 = RenderConfig(width=64, height=64)
+    out["rmse_di_vs_dioracle_64"] = accuracy_row(
+        "rmse_di_vs_dioracle_64 (DiOracle vs DI-only ReSTIR, 64x64)",
+        (DiOracle(cornell_box(emission=18.0), hcam, w3), 10.0, 600, 12000,
+         200),
+        (RestirRenderer(cornell_box(emission=18.0), hcam, RenderConfig(
+            width=64, height=64, aa_jitter=False, gi_bounces=0)),
+         35.0, 100, 8000, 20),
+        (0.97, 1.03, 0.05), jrows["rmse_di_vs_dioracle_64"])
+    out["rmse_vs_oracle"] = accuracy_row(
+        "rmse_vs_oracle (quirk-free 5-bounce megakernel vs ReSTIR, 96x96)",
+        (Renderer(cornell_box(emission=18.0), hcam, RenderConfig(
+            width=96, height=96, max_bounces=5, aa_jitter=False,
+            reference_mis_quirk=False)), 15.0, 250, 2000, 50),
+        (RestirRenderer(cornell_box(emission=18.0), hcam, RenderConfig(
+            width=96, height=96, aa_jitter=False)), 50.0, 120, 1000, 20),
+        (0.94, 1.04, 0.08), jrows["rmse_vs_oracle"])
+    out["jax_accuracy_rows"] = jrows
+    torch.cuda.empty_cache()
+
+    # ---- (e) a small megakernel frame on the card against the CPU
+    out["small_frames_agree"] = small_frames_agree(megakernel=True)
+    return out, entries
+
+
 def write_png(path, img):
     """8-bit RGB PNG from an [H, W, 3] array in [0, 1] (stdlib only)."""
     h, w, _ = img.shape
@@ -981,20 +1275,7 @@ def main() -> None:
     for name, replaces in KERNELS.items():
         pk = per_kernel[name]
         lanes_n, call, out = largest[name]
-        frame_bound = 0.0
-        for b in pk["batches"]:
-            b.update(st.bound_ms(b, peak_flops, hbm))
-            frame_bound += b["bound_ms"]
-            live = max(b["live_chunks"], 1)
-            print(f"    batch {b['lanes']} lanes: {b['ms']:.3f} ms, bound "
-                  f"{b['bound_ms']:.3f} ms ({b['bound_by']}); chunks with an "
-                  f"empty worklist {1.0 - b['live_chunks'] / b['chunks']:.4f}"
-                  f"; per live chunk: blocks visited "
-                  f"{b['blocks_visited'] / live:.3f}, hot clusters "
-                  f"{b['clusters_tested'] / live:.3f}, candidate pairs "
-                  f"{b['pairs'] / live:.2f}; valid lanes "
-                  f"{b['valid_lanes'] / b['lanes']:.4f}, live lanes "
-                  f"{b['live_lanes'] / b['lanes']:.4f}", flush=True)
+        frame_bound = print_batches(pk["batches"], (peak_flops, hbm))
         print(f"  {name}: {pk['frame_launches']} launches, "
               f"{pk['frame_ms']:.3f} ms per frame (bound {frame_bound:.3f} "
               "ms)", flush=True)
@@ -1023,14 +1304,26 @@ def main() -> None:
         scenes, by_kernel = phase_scenes(
             out_dir, (peak_flops, hbm), mismatches,
             args.out if args.profile else None)
-    print(f"  scenes phase {time.perf_counter() - t0:.1f} s", flush=True)
+        print(f"  scenes phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # ---- phase 5: the megakernel Renderer and the DiOracle
+        print("phase 5: oracles", flush=True)
+        t0 = time.perf_counter()
+        oracles, by_kernel_o = phase_oracles(
+            out_dir, (peak_flops, hbm), mismatches,
+            {k: by_kernel[k]["sponza"] for k in KERNELS},
+            args.out if args.profile else None)
+        print(f"  oracles phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- phase 6: the kernels line and the ok line
     for e in entries:
-        e["scenes"] = by_kernel[e["name"]]
+        e["scenes"] = dict(by_kernel[e["name"]], **by_kernel_o[e["name"]])
         e["max_abs_err"] = max(c["max_abs_err"] for c in mismatches[e["name"]])
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries, "frame_ms": timed,
                       "small_frames_agree": agree, "profile": profile,
-                      "scenes": scenes, "device": name_power}), flush=True)
+                      "scenes": scenes, "oracles": oracles,
+                      "device": name_power}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,6 +1,7 @@
 """Headless CLI of the port (port of royaltracer_dx_tpu/cli.py): the same
-flags and scenes, rendering with the port's RestirRenderer on the card,
-or on the CPU with ``--cpu``.
+flags and scenes, rendering with the port's RestirRenderer (or, with
+``--renderer megakernel``, the megakernel ``Renderer``) on the card, or on
+the CPU with ``--cpu``.
 
 Usage:
   python -m royaltracer_dx_tpu_torch.cli --scene cornell --frames 64 \\
@@ -9,11 +10,13 @@ Usage:
       --height 1080 --frames 100 --snapshot-every 25 --checkpoint ck.npz
   python -m royaltracer_dx_tpu_torch.cli --cpu --scene cornell \\
       --width 64 --height 64 --frames 4
+  python -m royaltracer_dx_tpu_torch.cli --renderer megakernel \\
+      --scene sponza --width 1920 --height 1080 --frames 16
 
 Options of the JAX CLI whose renderers are not ported raise
 NotImplementedError naming the ROADMAP item that ports them:
-``--renderer megakernel`` (A'6), ``--devices`` > 1 (A'9), ``--bvh`` and
-``--traversal cluster|bvh`` (A'11).  ``--scene reference`` reads
+``--devices`` > 1 (A'9), ``--bvh`` and ``--traversal cluster|bvh``
+(A'11).  ``--scene reference`` reads
 garage.obj and monke.obj from $ROYALTRACER_REFERENCE_INCLUDE (default:
 ``reference/`` at the repo root) and fails, as the JAX CLI does, when
 they are absent.  ``main`` returns the renderer and the per-frame times.
@@ -105,9 +108,6 @@ def _sync(device) -> None:
 
 
 def _unported(args) -> str | None:
-    if args.renderer == "megakernel":
-        return ("--renderer megakernel: the megakernel oracle is not ported "
-                "(ROADMAP A'6)")
     if args.devices > 1:
         return ("--devices > 1: pixel-band sharding is not ported (ROADMAP "
                 "A'9)")
@@ -162,6 +162,7 @@ def main(argv=None) -> dict:
         load_renderer_state,
         save_renderer_state,
     )
+    from royaltracer_dx_tpu_torch.render.renderer import Renderer
     from royaltracer_dx_tpu_torch.render.restir_renderer import RestirRenderer
     from royaltracer_dx_tpu_torch.utils.image import write_png
 
@@ -170,8 +171,8 @@ def main(argv=None) -> dict:
                        traversal=args.traversal or "auto",
                        seed_mode=args.seed_mode)
     scene, camera = build_scene(args.scene)
-    r = RestirRenderer(scene, camera, cfg,
-                       device="cpu" if args.cpu else None)
+    cls = RestirRenderer if args.renderer == "restir" else Renderer
+    r = cls(scene, camera, cfg, device="cpu" if args.cpu else None)
     if args.checkpoint and os.path.exists(args.checkpoint):
         load_renderer_state(args.checkpoint, r)
         print(f"resumed from {args.checkpoint} at frame {r.frame}")

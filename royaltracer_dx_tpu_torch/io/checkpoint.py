@@ -1,20 +1,28 @@
 """Checkpoint/resume of the progressive render state (port of
 royaltracer_dx_tpu/io/checkpoint.py).
 
-The state is the ``RestirRenderer.state_dict`` arrays, saved as one npz
-under the JAX package's key names (format, frame, prev_view, prev_proj,
-fb.accum, fb.count, l1, last_di.*, last_gi.*, last_sdata.*), so a
-checkpoint crosses between the two packages in either direction.  The
-megakernel and sharded-ReSTIR formats belong to renderers the port does
-not have yet; loading them raises a ValueError that names them.
+The state is the renderer's ``state_dict`` arrays, saved as one npz under
+the JAX package's key names, so a checkpoint crosses between the two
+packages in either direction:
+
+  restir      format, frame, prev_view, prev_proj, fb.accum, fb.count, l1,
+              last_di.*, last_gi.*, last_sdata.*   (``RestirRenderer``)
+  megakernel  format, frame, prev_view, fb.accum, fb.count   (``Renderer``)
+
+The sharded-ReSTIR format belongs to a renderer the port does not have
+yet; loading it raises a ValueError that names it.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-_UNPORTED = {"megakernel": "the megakernel oracle (ROADMAP A'6)",
-             "sharded_restir": "the sharded ReSTIR renderer (ROADMAP A'9)"}
+_UNPORTED = {"sharded_restir": "the sharded ReSTIR renderer (ROADMAP A'9)"}
+
+
+def _format_of(renderer) -> str:
+    """The format a renderer saves and restores (checkpoint.py:28-33)."""
+    return "restir" if hasattr(renderer, "last_di") else "megakernel"
 
 
 def _format_of_npz(data) -> str:
@@ -26,22 +34,28 @@ def _format_of_npz(data) -> str:
 
 
 def save_renderer_state(path: str, renderer) -> None:
-    """Save a RestirRenderer's progressive state as a compressed npz."""
+    """Save a Renderer's or RestirRenderer's progressive state as a
+    compressed npz."""
     np.savez_compressed(path, **renderer.state_dict())
 
 
 def load_renderer_state(path: str, renderer) -> None:
     """Restore a state saved by either package's ``save_renderer_state``
-    into a RestirRenderer of the same resolution.  Raises ValueError on a
-    format or resolution mismatch instead of restoring part of a state."""
+    into a renderer of the same format and resolution.  Raises ValueError
+    on a format or resolution mismatch instead of restoring part of a
+    state."""
     with np.load(path) as data:
         have = _format_of_npz(data)
+        want = _format_of(renderer)
         if have in _UNPORTED:
             raise ValueError(
                 f"checkpoint format {have!r} is not ported: it needs "
-                f"{_UNPORTED[have]}; this package restores 'restir' states")
-        if have != "restir":
-            raise ValueError(f"unknown checkpoint format {have!r}")
+                f"{_UNPORTED[have]}; this package restores 'restir' and "
+                "'megakernel' states")
+        if have != want:
+            raise ValueError(
+                f"checkpoint format {have!r} does not match renderer "
+                f"{type(renderer).__name__} (expects {want!r})")
         fb_n = int(data["fb.accum"].shape[0])
         if fb_n != renderer.cfg.num_pixels:
             raise ValueError(

@@ -98,12 +98,18 @@ def wants_gi_compaction(scene: SceneArrays, cfg: RenderConfig) -> bool:
             and scene.stream.num_blocks * S > _FLAT_MAX_CLUSTERS)
 
 
+def check_traversal(cfg: RenderConfig) -> None:
+    """Raise for the traversals the port does not have."""
+    if cfg.accel in ("bvh", "cluster"):
+        raise NotImplementedError(
+            f"traversal={cfg.accel!r} is not ported (ROADMAP A'11); use "
+            "auto, brute or stream")
+
+
 def trace_mode(scene: SceneArrays, cfg: RenderConfig, n: int,
                coherent: bool = True, closest: bool = True) -> str:
     """Which trace a batch takes: "stream" (the kernels) or "brute"."""
-    if cfg.accel in ("bvh", "cluster"):
-        raise NotImplementedError(
-            f"traversal={cfg.accel!r} is not ported; use auto/brute/stream")
+    check_traversal(cfg)
     if scene.device.type == "cuda":
         if scene.stream is None:
             raise ValueError("CUDA scene without a stream accel "

@@ -270,18 +270,34 @@ def _build_worklists(origins, dirs, t_min, t_max, accel: StreamAccel,
     origins/dirs [N_pad, 3].  Returns (wl [chunks, wb] int32, went
     [chunks, wb] f32 entry lower bounds, cnt [chunks] int32).  The sort is
     stable (``lax.sort`` is not, :495): ties between equal entries order
-    by block id, which can change only the slot of an exact-t tie."""
+    by block id, which can change only the slot of an exact-t tie.
+
+    The chunk bounds take only the lanes with t_max > t_min, as the JAX
+    package's XLA path bounds its tiles (``_block_sort``, :834-848); the
+    Pallas path's bounds (:482-489) take every lane.  A lane that fails
+    the test never hits (its slab and Moller-Trumbore tests need t_min <
+    t), so every other lane's answer stands; but a dead lane no longer
+    widens its chunk, and a NaN t_min (a megakernel shadow ray of a lane
+    that missed) no longer turns the chunk's bounds to NaN, which emptied
+    its worklist and left its live lanes unoccluded."""
     n = origins.shape[0]
     chunks = n // RAYS_PER_CHUNK
     b = accel.num_blocks
+    live = (t_max > t_min).reshape(chunks, RAYS_PER_CHUNK, 1)
+    big = torch.full((), _BIG, dtype=torch.float32, device=origins.device)
+
+    def lo(a):
+        return torch.amin(torch.where(live, a, big), dim=1)
+
+    def hi(a):
+        return torch.amax(torch.where(live, a, -big), dim=1)
+
     o = origins.reshape(chunks, RAYS_PER_CHUNK, 3)
     d = dirs.reshape(chunks, RAYS_PER_CHUNK, 3)
     ok, entry = _interval_slab(
-        torch.amin(o, dim=1), torch.amax(o, dim=1),
-        torch.amin(d, dim=1), torch.amax(d, dim=1),
-        accel.top_lo, accel.top_hi,
-        torch.amin(t_min.reshape(chunks, RAYS_PER_CHUNK), dim=1),
-        torch.amax(t_max.reshape(chunks, RAYS_PER_CHUNK), dim=1))
+        lo(o), hi(o), lo(d), hi(d), accel.top_lo, accel.top_hi,
+        lo(t_min.reshape(chunks, RAYS_PER_CHUNK, 1))[:, 0],
+        hi(t_max.reshape(chunks, RAYS_PER_CHUNK, 1))[:, 0])
     key = torch.where(ok, entry, torch.full_like(entry, INF))
     skey, sbid = torch.sort(key, dim=1, stable=True)
     if b < wb:

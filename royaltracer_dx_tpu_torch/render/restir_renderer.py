@@ -821,10 +821,7 @@ class RestirRenderer:
 
     def __init__(self, scene: Scene, camera: Camera, cfg: RenderConfig,
                  device=None):
-        if cfg.accel in ("bvh", "cluster"):
-            raise NotImplementedError(
-                f"traversal={cfg.accel!r} is not ported; use auto, brute or "
-                "stream")
+        restir.check_traversal(cfg)
         if cfg.gi_compaction not in ("auto", "on", "off"):
             raise ValueError(f"gi_compaction={cfg.gi_compaction!r}")
         if cfg.record_dtype not in _REC_DTYPES:

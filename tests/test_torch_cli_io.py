@@ -1,6 +1,7 @@
 """The port's I/O and CLI against the JAX package: half-precision payload
-tables, checkpoint formats, AOVs, PNG and metrics, and
-``python -m royaltracer_dx_tpu_torch.cli``.  (A JAX checkpoint resumed
+tables, checkpoint formats (restir and megakernel, crossing between the
+packages), AOVs, PNG and metrics, and
+``python -m royaltracer_dx_tpu_torch.cli`` (both renderers).  (A JAX checkpoint resumed
 by the port is in tests/test_torch_dynamic.py, beside the JAX frames it
 reuses.)
 
@@ -20,6 +21,8 @@ import torch
 from royaltracer_dx_tpu.camera import Camera as JCamera
 from royaltracer_dx_tpu.config import RenderConfig as JConfig
 from royaltracer_dx_tpu.ops.reservoir import ReservoirDI, ReservoirGI, SampleData
+from royaltracer_dx_tpu.io import checkpoint as jck
+from royaltracer_dx_tpu.render import renderer as jmk_renderer
 from royaltracer_dx_tpu.render import restir_renderer as jr
 from royaltracer_dx_tpu.render.aov import render_aovs as j_aovs
 from royaltracer_dx_tpu.scene import procedural as jproc
@@ -30,6 +33,7 @@ from royaltracer_dx_tpu_torch import cli, convert
 from royaltracer_dx_tpu_torch.camera import Camera
 from royaltracer_dx_tpu_torch.config import RenderConfig
 from royaltracer_dx_tpu_torch.io import checkpoint as tck
+from royaltracer_dx_tpu_torch.render import renderer as tr_mk
 from royaltracer_dx_tpu_torch.render import restir_renderer as tr
 from royaltracer_dx_tpu_torch.render.aov import CHANNELS, render_aovs
 from royaltracer_dx_tpu_torch.scene import procedural as tproc
@@ -120,8 +124,7 @@ def test_half_record_id_guard(dtype, count):
 # ------------------------------ checkpoint -------------------------------
 
 
-@pytest.mark.parametrize("fmt,names", [("megakernel", "A'6"),
-                                       ("sharded_restir", "A'9")])
+@pytest.mark.parametrize("fmt,names", [("sharded_restir", "A'9")])
 def test_unported_checkpoint_formats_raise(tmp_path, fmt, names):
     path = str(tmp_path / "x.npz")
     np.savez(path, format=np.asarray(fmt), frame=np.asarray(1),
@@ -142,6 +145,92 @@ def test_checkpoint_resolution_mismatch_raises(tmp_path):
                           RenderConfig(width=8, height=8), device="cpu")
     with pytest.raises(ValueError, match="resolution"):
         tck.load_renderer_state(path, r)
+
+
+def _mk(w=8, h=6, **kw):
+    return tr_mk.Renderer(tproc.cornell_box(), Camera(eye=EYE, center=CENTER),
+                          RenderConfig(width=w, height=h, max_bounces=2,
+                                       **kw), device="cpu")
+
+
+def _jax_mk(w=8, h=6):
+    return jmk_renderer.Renderer(jproc.cornell_box(),
+                                 JCamera(eye=EYE, center=CENTER),
+                                 JConfig(width=w, height=h, max_bounces=2))
+
+
+def test_megakernel_checkpoint_round_trip(tmp_path):
+    """A port megakernel state saved and restored by the port, then read
+    by the JAX package's load_renderer_state into its Renderer."""
+    path = str(tmp_path / "mk.npz")
+    a = _mk()
+    a.render()
+    a.render()
+    tck.save_renderer_state(path, a)
+    with np.load(path) as data:
+        saved = {k: data[k] for k in data.files}
+    assert str(saved["format"]) == "megakernel"
+    assert sorted(saved) == ["fb.accum", "fb.count", "format", "frame",
+                             "prev_view"]
+    b = _mk()
+    tck.load_renderer_state(path, b)
+    for k, v in a.state_dict().items():
+        np.testing.assert_array_equal(b.state_dict()[k], v)
+    a.render()
+    b.render()                      # resumed: the same third frame
+    np.testing.assert_array_equal(a.radiance(), b.radiance())
+    assert b.frame == 3 and float(b.fb.count.max()) == 3.0
+    j = _jax_mk()
+    jck.load_renderer_state(path, j)
+    assert j.frame == 2
+    for key, got in (("fb.accum", j.fb.accum), ("fb.count", j.fb.count),
+                     ("prev_view", j._prev_view)):
+        np.testing.assert_array_equal(np.asarray(got), saved[key])
+
+
+def test_jax_megakernel_checkpoint_resumes_in_port(tmp_path):
+    """A megakernel npz written by the JAX package's save_renderer_state
+    resumes in the port: every array restored, and the next frame keeps
+    accumulating (the camera did not move)."""
+    import jax.numpy as jnp
+    from royaltracer_dx_tpu.render.framebuffer import Framebuffer as JFb
+
+    rng = np.random.default_rng(4)
+    j = _jax_mk()
+    j.fb = JFb(accum=jnp.asarray(rng.uniform(0, 3, (48, 3)), jnp.float32),
+               count=jnp.full((48,), 5.0, jnp.float32))
+    j.frame = 5
+    j._prev_view = jnp.asarray(j._camera_arrays()["view"])
+    path = str(tmp_path / "jmk.npz")
+    jck.save_renderer_state(path, j)
+    r = _mk()
+    tck.load_renderer_state(path, r)
+    assert r.frame == 5
+    np.testing.assert_array_equal(r.fb.accum.numpy(), np.asarray(j.fb.accum))
+    np.testing.assert_array_equal(r._prev_view.numpy(),
+                                  np.asarray(j._prev_view))
+    r.render()
+    assert r.frame == 6 and float(r.fb.count.min()) == 6.0
+
+
+@pytest.mark.parametrize("saved", ["megakernel", "restir"])
+def test_checkpoint_format_mismatch_raises(tmp_path, saved):
+    """A megakernel state fed to a RestirRenderer, and the reverse, raise
+    naming the formats; so does a resolution mismatch."""
+    path = str(tmp_path / "x.npz")
+    cam = Camera(eye=EYE, center=CENTER)
+    rest = tr.RestirRenderer(tproc.cornell_box(), cam,
+                             RenderConfig(width=8, height=6), device="cpu")
+    mk = _mk()
+    src, dst = (mk, rest) if saved == "megakernel" else (rest, mk)
+    tck.save_renderer_state(path, src)
+    want = "restir" if saved == "megakernel" else "megakernel"
+    with pytest.raises(ValueError, match=f"'{saved}'.*'{want}'"):
+        tck.load_renderer_state(path, dst)
+    with pytest.raises(ValueError, match="resolution"):
+        tck.load_renderer_state(path, src.__class__(
+            tproc.cornell_box(), cam, RenderConfig(width=8, height=8),
+            device="cpu"))
 
 
 # --------------------------------- AOVs ----------------------------------
@@ -237,6 +326,28 @@ def test_cli_smoke_and_resume(tmp_path, capsys):
     assert float(res["renderer"].fb.count.max()) == 3.0
 
 
+def test_cli_megakernel_renders_and_resumes(tmp_path, capsys):
+    """``--renderer megakernel`` on the CPU writes an image and a
+    megakernel checkpoint, and a second run resumes from it."""
+    out = str(tmp_path / "m.png")
+    ck = str(tmp_path / "mk.npz")
+    argv = ["--cpu", "--renderer", "megakernel", "--scene", "cornell",
+            "--width", "16", "--height", "12", "--bounces", "3", "--out",
+            out, "--checkpoint", ck]
+    res = cli.main(argv + ["--frames", "2"])
+    r = res["renderer"]
+    assert type(r).__name__ == "Renderer" and r.frame == 2
+    assert os.path.exists(out) and os.path.exists(ck)
+    assert _read_png(out).shape == (12, 16, 3)
+    assert r.metrics["mrays_per_s"] > 0 and r.cfg.max_bounces == 3
+    with np.load(ck) as data:
+        assert str(data["format"]) == "megakernel"
+    res = cli.main(argv + ["--frames", "1"])
+    assert "resumed from" in capsys.readouterr().out
+    assert res["renderer"].frame == 3
+    assert float(res["renderer"].fb.count.min()) == 3.0
+
+
 def test_cli_animate_and_profile(tmp_path):
     res = cli.main(["--cpu", "--scene", "menger", "--width", "16",
                     "--height", "8", "--frames", "1", "--animate",
@@ -249,7 +360,6 @@ def test_cli_animate_and_profile(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--renderer", "megakernel"], "A'6"),
     (["--devices", "2"], "A'9"),
     (["--bvh"], "A'11"),
     (["--traversal", "cluster"], "A'11"),

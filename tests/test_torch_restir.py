@@ -72,9 +72,9 @@ def leaves(tree, prefix=""):
     return {prefix[:-1]: a}
 
 
-def assert_lanes(port, ref, skip=()):
+def assert_lanes(port, ref, skip=(), rtol=RTOL, atol=ATOL):
     """Per lane: every integer/bool leaf equal and every float leaf within
-    RTOL/ATOL; at least MIN_LANES of the lanes must agree on all leaves."""
+    rtol/atol; at least MIN_LANES of the lanes must agree on all leaves."""
     lp, lr = leaves(port), leaves(ref)
     keys = sorted(k for k in lr if k not in skip)
     assert sorted(k for k in lp if k not in skip) == keys
@@ -84,7 +84,7 @@ def assert_lanes(port, ref, skip=()):
         a, b = lp[k], lr[k]
         assert a.shape == b.shape, k
         if a.dtype.kind == "f":
-            ok = np.isclose(a, b, rtol=RTOL, atol=ATOL, equal_nan=True)
+            ok = np.isclose(a, b, rtol=rtol, atol=atol, equal_nan=True)
         else:
             ok = a == b
         agree &= ok.reshape(n, -1).all(axis=1)
@@ -328,6 +328,9 @@ def test_port_imports_no_jax():
         "import royaltracer_dx_tpu_torch.native\n"
         "import royaltracer_dx_tpu_torch.utils.image\n"
         "import royaltracer_dx_tpu_torch.utils.metrics\n"
+        "import royaltracer_dx_tpu_torch.render.megakernel\n"
+        "import royaltracer_dx_tpu_torch.render.renderer\n"
+        "import royaltracer_dx_tpu_torch.render.di_oracle\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'royaltracer_dx_tpu'"
         " or m.startswith('royaltracer_dx_tpu.')]\n"
