@@ -69,7 +69,30 @@ Phases (any failure exits non-zero and prints no result line):
               96x96 (0.94 < rel_mean < 1.04, rmse < 0.08), printed beside
               BENCH_r05.json's rows for the JAX package; (e) two 96x54
               megakernel menger frames on the card against the CPU.
-  6. the {"kernels": [...]} line, then the {"ok": true, ...} line.
+  6. sharding and LBVH: (a) the 1920x1080 menger frame (phase 3's main
+              path) on 1, 2 and 4 bands of one card -- RestirRenderer and
+              ShardedRestirRenderer(devices=[cuda:0] * n) -- 3 frames
+              with a static camera, then a frame after a camera move
+              within the 20-row halo and one after a move beyond it; each
+              image against one device's (rtol=1e-5, atol=1e-6 for the
+              static and the within-halo frames), frame times, stream
+              launches per frame and peak memory, and a checkpoint save
+              and load of the 2-band renderer; (b) sponza through cli.main
+              --bvh (2 ReSTIR frames) and --bvh --renderer megakernel (1
+              frame), with the LBVH launch counters set to 0 just before
+              each and read just after; every bvh_closest / bvh_any
+              launch held against its plain version on a fixed sample of
+              65,536 of its lanes (t, u, v, triangle ids and occlusion
+              bit-equal); then one more frame of each with every batch's
+              ms, bound and walk (node and triangle tests a lane), the
+              stream kernels timed on the megakernel's batches beside
+              them, and each kernel alone, its bound and its plain
+              version on the ReSTIR frame's largest batch; (c) the
+              terrain's LBVH (999,698 triangles): build time, closest and
+              any-hit Mrays/s beside phase 4's stream kernels; (d) dragon
+              through cli.main --bvh --animate: one refit update() and
+              one frame, its launches checked as in (b).
+  7. the {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 --out DIR writes the rendered images there as PNGs (else the scenes
 phase writes its CLI outputs into a temporary directory).  --profile runs
@@ -83,6 +106,7 @@ script imports nothing of JAX: it runs the port alone.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import os
 import re
@@ -1170,6 +1194,459 @@ def write_png(path, img):
                 + chunk(b"IDAT", zlib.compress(data, 6)) + chunk(b"IEND", b""))
 
 
+# ------------------------------ phase 6 ----------------------------------
+
+BVH_SOURCE = "royaltracer_dx_tpu_torch/csrc/bvh_traverse.cu"
+# the JAX functions the LBVH kernels replace: XLA while_loops, not Pallas
+BVH_KERNELS = {
+    "bvh_closest": ("royaltracer_dx_tpu/ops/traverse.py:117",
+                    "closest_hit_bvh (lax.while_loop :224)"),
+    "bvh_any": ("royaltracer_dx_tpu/ops/traverse.py:237",
+                "any_hit_bvh (lax.while_loop :328)"),
+}
+SAMPLE_LANES = 65536
+
+
+def sample_lanes(n, device):
+    """SAMPLE_LANES lane indices evenly strided over [0, n) (every lane of
+    a smaller batch), in integer arithmetic: a float32 linspace rounds
+    past n - 1 on batches of millions of lanes."""
+    k = min(n, SAMPLE_LANES)
+    return (torch.arange(k, dtype=torch.int64, device=device) * (n - 1)
+            // max(k - 1, 1))
+
+
+def reset_bvh_launches():
+    from royaltracer_dx_tpu_torch.ops import traverse as tv
+
+    for k in tv.LAUNCHES:
+        tv.LAUNCHES[k] = 0
+
+
+def read_bvh_launches(label):
+    """The LBVH kernels' launch counts of the path just driven; fails
+    unless both were launched in it."""
+    from royaltracer_dx_tpu_torch.ops import traverse as tv
+
+    got = dict(tv.LAUNCHES)
+    if not all(v > 0 for v in got.values()):
+        fail(f"{label}: an LBVH kernel was not launched ({got})")
+    return got
+
+
+class BvhLaunches:
+    """While a path runs, wraps the LBVH kernels' launch: times every
+    launch with CUDA events and keeps a fixed sample of SAMPLE_LANES of its
+    lanes (evenly strided; every lane of a smaller batch) with the
+    kernel's outputs there, for ``check`` against the plain version
+    afterwards.  A lane's answer depends on that lane alone, so a sample
+    is a fair check.  With ``work`` each batch is launched once more with
+    the walk counts (for its bound) and the largest batch of each kernel
+    is kept; with ``stream`` (a StreamAccel of the same triangles) the
+    stream kernel traces the same rays, timed alone."""
+
+    def __init__(self, label, work=False, stream=None):
+        self.label, self.work, self.stream = label, work, stream
+        self.recs: list = []
+        self.largest: dict = {}
+
+    def __enter__(self):
+        from royaltracer_dx_tpu_torch.ops import traverse as tv
+
+        self.tv = tv
+        self.real = tv._launch
+        tv._launch = self._launch
+        return self
+
+    def __exit__(self, *exc):
+        self.tv._launch = self.real
+
+    def _launch(self, name, rays, bvh, outs, stats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        self.real(name, rays, bvh, outs, stats)
+        end.record()
+        n = rays.shape[0]
+        idx = sample_lanes(n, rays.device)
+        rec = dict(name=name, lanes=n, start=start, end=end, bvh=bvh,
+                   rays=rays[idx], outs=tuple(o[idx] for o in outs))
+        if self.work:
+            tmp = tuple(torch.empty_like(o) for o in outs)
+            st_buf = torch.empty((n, 3), dtype=torch.int32,
+                                 device=rays.device)
+            self.real(name, rays, bvh, tmp, st_buf)
+            rec["work"] = self.tv.bvh_work(rays, bvh, st_buf,
+                                           name == "bvh_closest")
+            if n > self.largest.get(name, (0,))[0]:
+                self.largest[name] = (n, rays, bvh)
+        if self.stream is not None:
+            from royaltracer_dx_tpu_torch.ops import stream_trace as st
+
+            sname = "stream_any" if name == "bvh_any" else "stream_closest"
+            call = st.prepare_stream(rays[:, 0:3], rays[:, 3:6], self.stream,
+                                     rays[:, 6], rays[:, 7], 16)
+            kern = st.stream_any if name == "bvh_any" else st.stream_closest
+            rec["stream_ms"], _ = cuda_ms(lambda: kern(
+                *call, self.stream.blk_tris, self.stream.blk_boxes))
+            rec["stream_kernel"] = sname
+        self.recs.append(rec)
+
+    def check(self, mismatches):
+        """Every recorded launch's sample against the plain version:
+        t/u/v and triangle ids (closest) or the occlusion flags (any)
+        bit-equal.  Fails on any difference."""
+        tv = self.tv
+        for rec in self.recs:
+            if rec["name"] == "bvh_closest":
+                p_tuv, p_tri, _ = tv._closest_plain(rec["rays"], rec["bvh"])
+                k_tuv, k_tri = rec["outs"]
+                bad = int(((k_tuv != p_tuv).any(dim=1)
+                           | (k_tri != p_tri)).sum())
+                err = float((k_tuv - p_tuv).abs().max()) if p_tuv.numel() \
+                    else 0.0
+            else:
+                p_occ, _ = tv._any_plain(rec["rays"], rec["bvh"])
+                bad = int((rec["outs"][0] != p_occ).sum())
+                err = float(bad)
+            mismatches.setdefault(rec["name"], []).append(dict(
+                case=self.label, lanes=int(rec["rays"].shape[0]), bad=bad,
+                max_abs_err=err))
+            if bad:
+                fail(f"{self.label}: {rec['name']} differs from its plain "
+                     f"version on {bad} of {rec['rays'].shape[0]} sampled "
+                     "lanes")
+        return len(self.recs)
+
+    def per_kernel(self, rates):
+        """Per kernel: launches, the summed ms and bound of its batches,
+        and one line per batch."""
+        from royaltracer_dx_tpu_torch.ops import stream_trace as st
+
+        out = {}
+        for name in BVH_KERNELS:
+            recs = [r for r in self.recs if r["name"] == name]
+            lines = []
+            for r in recs:
+                ms = r["start"].elapsed_time(r["end"])
+                line = dict(lanes=r["lanes"], ms=ms)
+                if "work" in r:
+                    w = r["work"]
+                    line.update(bound_ms=st.bound_ms(w, *rates)["bound_ms"],
+                                nodes_per_lane=w["nodes_per_lane"],
+                                tris_per_lane=w["tris_per_lane"],
+                                live_lanes=w["live_lanes"])
+                if "stream_ms" in r:
+                    line["stream_ms"] = r["stream_ms"]
+                lines.append(line)
+            out[name] = dict(launches=len(recs), batches=lines,
+                             ms=sum(x["ms"] for x in lines),
+                             bound_ms=sum(x.get("bound_ms", 0.0)
+                                          for x in lines))
+        return out
+
+
+def print_bvh_batches(label, per_kernel):
+    for name, pk in per_kernel.items():
+        print(f"  {label} {name}: {pk['launches']} launches, "
+              f"{pk['ms']:.3f} ms in all (bound {pk['bound_ms']:.3f} ms)",
+              flush=True)
+        for b in pk["batches"]:
+            extra = ""
+            if "bound_ms" in b:
+                extra = (f", bound {b['bound_ms']:.3f} ms, "
+                         f"{b['nodes_per_lane']:.1f} node and "
+                         f"{b['tris_per_lane']:.1f} triangle tests a lane "
+                         f"({b['live_lanes']} live)")
+            if "stream_ms" in b:
+                extra += f"; the stream kernel on the same rays " \
+                         f"{b['stream_ms']:.3f} ms"
+            print(f"    {b['lanes']:>9} lanes: {b['ms']:.3f} ms{extra}",
+                  flush=True)
+
+
+def bvh_kernel_entry(name, rec, rates, mismatches):
+    """The kernels-line numbers of an LBVH kernel on the largest batch of
+    a run: its time alone (3 launches), the bound from that batch's walk
+    counts, and the plain version's time on the batch's fixed sample."""
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+    from royaltracer_dx_tpu_torch.ops import traverse as tv
+
+    n, rays, bvh = rec
+    kern = tv.bvh_closest if name == "bvh_closest" else tv.bvh_any
+    cuda_ms(lambda: kern(rays, bvh))
+    ms, _ = cuda_ms(lambda: kern(rays, bvh), reps=3)
+    st_buf = kern(rays, bvh, stats=True)[-1]
+    work = tv.bvh_work(rays, bvh, st_buf, name == "bvh_closest")
+    bound = st.bound_ms(work, *rates)
+    idx = sample_lanes(n, rays.device)
+    plain = tv._closest_plain if name == "bvh_closest" else tv._any_plain
+    sample = rays[idx]
+    plain_ms, _ = cuda_ms(lambda: plain(sample, bvh))
+    err = max([c["max_abs_err"] for c in mismatches.get(name, [])] + [0.0])
+    return dict(lanes=n, ms=ms, plain_ms=plain_ms,
+                plain_lanes=int(sample.shape[0]), max_abs_err=err,
+                work=work, **bound)
+
+
+def phase_sharding(rates, out_dir):
+    """(a) The 1080p menger frame on 1, 2 and 4 bands of one card."""
+    from royaltracer_dx_tpu_torch.config import RenderConfig
+    from royaltracer_dx_tpu_torch.io.checkpoint import (
+        load_renderer_state,
+        save_renderer_state,
+    )
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+    from royaltracer_dx_tpu_torch.parallel.shard import ShardedRestirRenderer
+    from royaltracer_dx_tpu_torch.render.restir_renderer import RestirRenderer
+    from royaltracer_dx_tpu_torch.scene.procedural import menger_scene
+
+    cfg = RenderConfig()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    halo = min(cfg.spatial_radius, cfg.height // 4)
+    # camera moves (orbit pitch, radians): about 4 rows, within the 20-row
+    # halo, then about 80 rows, beyond it
+    moves = (("static", None), ("move within the halo", 0.004),
+             ("move beyond the halo", 0.08))
+    ref_imgs: dict = {}
+    out = {}
+
+    def make(n):
+        scene, camera = menger_scene()
+        if n == 1:
+            return RestirRenderer(scene, camera, cfg)
+        return ShardedRestirRenderer(scene, camera, cfg, devices=[dev] * n)
+
+    for n in (1, 2, 4):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launches()
+        r = make(n)
+        frame_ms, per_frame = [], []
+        for _ in range(3):
+            prev = dict(st.LAUNCHES)
+            t0 = time.perf_counter()
+            r.render()
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            per_frame.append({k: st.LAUNCHES[k] - prev[k] for k in prev})
+        launches = read_launches(f"menger on {n} band(s)")
+        diffs = {}
+        for label, pitch in moves:
+            if pitch is not None:
+                r.update(camera=r.camera.orbited(0.0, pitch))
+                r.render()
+            img = r.radiance()
+            if not (np.isfinite(img).all() and img.mean() > 0.0):
+                fail(f"menger on {n} bands: radiance not finite and positive")
+            if n == 1:
+                ref_imgs[label] = img
+                continue
+            ref = ref_imgs[label]
+            d = np.abs(img - ref)
+            ok = bool(np.all(d <= 1e-6 + 1e-5 * np.abs(ref)))
+            diffs[label] = dict(max_abs=float(d.max()),
+                                pixels_differ=int((d > 0).any(-1).sum()),
+                                within_tol=ok)
+            if label != "move beyond the halo" and not ok:
+                fail(f"menger on {n} bands ({label}): the image is not "
+                     f"within rtol=1e-5, atol=1e-6 of one device's "
+                     f"({diffs[label]})")
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        row = dict(frame_ms=frame_ms, launches_per_frame=per_frame,
+                   launches=launches, peak_gib=peak, vs_single=diffs)
+        print(f"  menger 1920x1080 on {n} band(s) of one card: frames "
+              f"{[round(x, 3) for x in frame_ms]} ms, launches per frame "
+              f"{per_frame[-1]}, peak memory {peak:.2f} GiB; against one "
+              f"device: {diffs or 'the reference'}", flush=True)
+        if n == 2:
+            ck = os.path.join(out_dir, "sharded_ckpt.npz")
+            t0 = time.perf_counter()
+            save_renderer_state(ck, r)
+            b = make(2)
+            b.camera = r.camera          # the state holds no camera
+            load_renderer_state(ck, b)
+            secs = time.perf_counter() - t0
+            r.render()
+            b.render()
+            same = bool(np.array_equal(r.radiance(), b.radiance()))
+            print(f"  2 bands: checkpoint saved and loaded in {secs:.1f} s "
+                  f"({os.path.getsize(ck) / 2**20:.1f} MiB); the next frame "
+                  f"bit-equal after the load: {same}", flush=True)
+            if not same or b.frame != r.frame:
+                fail("sharded checkpoint round trip changed the frame")
+            row["checkpoint"] = dict(seconds=secs, bit_equal=same)
+            os.remove(ck)
+            del b
+        out[f"{n}_bands"] = row
+        del r
+    print(f"  (one card cannot show scaling: the bands run one after another;"
+          f" halo {halo} rows)", flush=True)
+    return out
+
+
+def phase_lbvh(out_dir, rates, mismatches, terrain_stream):
+    """(b) sponza --bvh through cli.main, (c) the terrain accel, (d) dragon
+    --bvh --animate.  Returns (results, kernel entries)."""
+    from royaltracer_dx_tpu_torch import cli
+    from royaltracer_dx_tpu_torch.camera import Camera, generate_rays
+    from royaltracer_dx_tpu_torch.ops import bvh as tb
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+    from royaltracer_dx_tpu_torch.ops import traverse as tv
+    from royaltracer_dx_tpu_torch.scene.procedural import heightfield
+
+    out = {}
+    size = ["--width", "1920", "--height", "1080"]
+
+    def cli_bvh(label, argv, frames):
+        reset_bvh_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with BvhLaunches(label) as rec:
+            t0 = time.perf_counter()
+            res = cli.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launches = read_bvh_launches(label)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        r = res["renderer"]
+        img = r.radiance()
+        if r.frame != frames or not bool((r.fb.count == frames).all()):
+            fail(f"{label}: frame counter {r.frame}, expected {frames}")
+        if not (np.isfinite(img).all() and img.mean() > 0.0):
+            fail(f"{label}: radiance is not finite and positive")
+        if r.scene_arrays.bvh is None or r.scene_arrays.stream is not None:
+            fail(f"{label}: the scene was not flattened for the LBVH alone")
+        t0 = time.perf_counter()
+        checked = rec.check(mismatches)
+        check_s = time.perf_counter() - t0
+        pk = rec.per_kernel(rates)
+        print(f"  {label}: cli.main {secs:.1f} s, frames "
+              f"{[round(x, 3) for x in res['frame_ms']]} ms, refit "
+              f"{[round(x, 3) for x in res['refit_ms']]} ms, peak memory "
+              f"{peak:.2f} GiB, launches {launches}; every launch's "
+              f"{SAMPLE_LANES}-lane sample equal to the plain version "
+              f"({checked} launches, {check_s:.1f} s)", flush=True)
+        return res, dict(frame_ms=res["frame_ms"], refit_ms=res["refit_ms"],
+                         peak_gib=peak, launches=launches, cli_s=secs,
+                         kernel_ms={k: v["ms"] for k, v in pk.items()})
+
+    # ---- (b) sponza --bvh: 2 ReSTIR frames, 1 megakernel frame
+    png = os.path.join(out_dir, "sponza_bvh.png")
+    res, row = cli_bvh("sponza --bvh", ["--scene", "sponza", "--bvh", *size,
+                                        "--frames", "2", "--out", png], 2)
+    restir_launches = row["launches"]
+    r = res["renderer"]
+    sa = r.scene_arrays
+    print(f"  sponza LBVH: {sa.num_triangles} triangles, "
+          f"{sa.bvh.num_leaves} leaves of {sa.bvh.leaf_size}", flush=True)
+    with BvhLaunches("sponza --bvh timed frame", work=True) as rec:
+        r.render()
+        torch.cuda.synchronize()
+    pk = rec.per_kernel(rates)
+    print_bvh_batches("sponza --bvh ReSTIR frame", pk)
+    largest = dict(rec.largest)
+    row["timed_frame"] = pk
+    out["sponza_restir"] = row
+    del r, res, rec
+    torch.cuda.empty_cache()
+
+    res, row = cli_bvh("sponza --bvh megakernel",
+                       ["--scene", "sponza", "--bvh", "--renderer",
+                        "megakernel", *size, "--frames", "1", "--out", png], 1)
+    r = res["renderer"]
+    accel = st.build_stream_accel(r.scene_arrays.tri_verts)
+    with BvhLaunches("sponza --bvh megakernel timed frame", work=True,
+                     stream=accel) as rec:
+        r.render()
+        torch.cuda.synchronize()
+    pk = rec.per_kernel(rates)
+    print_bvh_batches("sponza --bvh megakernel frame", pk)
+    row["timed_frame"] = pk
+    out["sponza_megakernel"] = row
+    del r, res, rec, accel
+    torch.cuda.empty_cache()
+
+    entries = {}
+    for name, (replaces, fn) in BVH_KERNELS.items():
+        e = bvh_kernel_entry(name, largest[name], rates, mismatches)
+        print(f"  {name} on sponza's largest ReSTIR batch ({e['lanes']} "
+              f"lanes): kernel {e['ms']:.3f} ms, bound {e['bound_ms']:.3f} "
+              f"ms ({e['bound_by']}), plain version {e['plain_ms']:.3f} ms "
+              f"on its {e['plain_lanes']}-lane sample; "
+              f"{e['work']['nodes_per_lane']:.1f} node and "
+              f"{e['work']['tris_per_lane']:.1f} triangle tests a lane",
+              flush=True)
+        entries[name] = dict(
+            e, name=name, route="cuda", source=BVH_SOURCE, replaces=replaces,
+            replaces_fn=fn, launches=restir_launches[name], library_ms=None,
+            resources=tv.BUILD_INFO["resources"][name])
+    del largest
+    torch.cuda.empty_cache()
+
+    # ---- (c) the terrain accel: closest and any-hit rates
+    dev = torch.device("cuda")
+    v, idx = heightfield(708)
+    tris = torch.as_tensor(v[idx], device=dev)
+    build = []
+    for _ in range(2):
+        ms, bvh = cuda_ms(lambda: tb.build_lbvh(tris))
+        build.append(ms)
+    cam = Camera(eye=(2.5, 2.2, 2.5), center=(0.0, 0.0, 0.0))
+    ca = {k: torch.as_tensor(x, device=dev)
+          for k, x in cam.matrices(1.0).items()}
+    o, d = generate_rays(ca, 512, 512)
+    order, _ = st.swizzle_order(512, 512, tile_w=8, tile_h=8)
+    order = torch.as_tensor(order, device=dev).long()
+    o, d = o[order].contiguous(), d[order].contiguous()
+    n = o.shape[0]
+    with BvhLaunches("terrain") as rec:
+        hit = tv.closest_hit_bvh(o, d, bvh)
+        lp = torch.tensor([0.0, 0.9, 0.0], device=dev)
+        t_s = torch.where(hit.t < 1e29, hit.t, 2.0)
+        p = o + d * (t_s[:, None] * 0.999)
+        ld = lp[None, :] - p
+        dist = torch.linalg.norm(ld, dim=1, keepdim=True)
+        ld = ld / torch.clamp_min(dist, 1e-6)
+        tmax = dist[:, 0] - 1e-3
+        occ = tv.any_hit_bvh(p, ld, bvh, 1e-3, tmax)
+    rec.check(mismatches)
+    rates_t = {}
+    for label, rays, kern in (
+            ("closest_camera", tv.pack_rays(o, d, 1e-4, 1e4), tv.bvh_closest),
+            ("anyhit_shadow", tv.pack_rays(p, ld, 1e-3, tmax), tv.bvh_any),
+            ("closest_shadow", tv.pack_rays(p, ld, 1e-3, tmax),
+             tv.bvh_closest)):
+        cuda_ms(lambda: kern(rays, bvh))
+        ms, _ = cuda_ms(lambda: kern(rays, bvh), reps=10)
+        rates_t[label + "_kernel_only"] = dict(ms=ms, mrays_per_s=n / ms / 1e3)
+    print(f"  terrain LBVH: {tris.shape[0]} triangles, {bvh.num_leaves} "
+          f"leaves; build {[round(x, 3) for x in build]} ms; "
+          f"{float(occ.float().mean()):.4f} of the shadow batch occluded "
+          "(the samples equal the plain version); "
+          + "; ".join(f"{k} {x['ms']:.3f} ms = {x['mrays_per_s']:.1f} Mrays/s"
+                      for k, x in rates_t.items())
+          + "; phase 4's stream kernels: "
+          + "; ".join(f"{k} {x['mrays_per_s']:.1f} Mrays/s"
+                      for k, x in terrain_stream.items()), flush=True)
+    out["terrain"] = dict(triangles=int(tris.shape[0]),
+                          leaves=bvh.num_leaves, build_ms=build,
+                          rates=rates_t, stream_rates=terrain_stream)
+    del tris, bvh, hit, occ, rec
+    torch.cuda.empty_cache()
+
+    # ---- (d) dragon --bvh --animate: one refit update() and one frame
+    res, row = cli_bvh("dragon --bvh --animate",
+                       ["--scene", "dragon", "--bvh", "--animate", *size,
+                        "--frames", "1", "--out",
+                        os.path.join(out_dir, "dragon_bvh.png")], 1)
+    out["dragon"] = row
+    del res
+    torch.cuda.empty_cache()
+    return out, entries
+
+
 # -------------------------------- main -----------------------------------
 
 
@@ -1188,6 +1665,7 @@ def main() -> None:
     import royaltracer_dx_tpu_torch  # noqa: F401  (sets the TF32 switches)
     from royaltracer_dx_tpu_torch.config import RenderConfig
     from royaltracer_dx_tpu_torch.ops import stream_trace as st
+    from royaltracer_dx_tpu_torch.ops import traverse as tv
     from royaltracer_dx_tpu_torch.render.restir_renderer import RestirRenderer
     from royaltracer_dx_tpu_torch.scene.procedural import menger_scene
 
@@ -1212,19 +1690,28 @@ def main() -> None:
           f"{clock_mhz:.0f} MHz -> FP32 peak {peak_flops / 1e12:.2f} TFLOP/s, "
           f"memory {hbm / 1e12:.2f} TB/s; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
-    st.build_kernels()
-    info = st.BUILD_INFO
-    print(f"  built {os.path.relpath(info['path'], ROOT)} in "
-          f"{info['seconds']:.1f} s ({' '.join(info['flags'])})", flush=True)
-    for line in info["log"].splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
-    for name, res in info["resources"].items():
+    # one nvcc per source, started together
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for fut in [pool.submit(st.build_kernels),
+                    pool.submit(tv.build_kernels)]:
+            fut.result()
+    for info in (st.BUILD_INFO, tv.BUILD_INFO):
+        print(f"  built {os.path.relpath(info['path'], ROOT)} in "
+              f"{info['seconds']:.1f} s ({' '.join(info['flags'])})",
+              flush=True)
+        for line in info["log"].splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                print(f"  ptxas: {line.strip()}", flush=True)
+    for name, res in st.BUILD_INFO["resources"].items():
         print(f"  {name}: {res['ctas_per_sm']} CTAs of 128 threads resident "
               f"per SM, {res['registers']} registers per thread, "
               f"{res['shared_bytes']} B of shared memory per CTA", flush=True)
         if res["ctas_per_sm"] < 2:
             fail(f"{name}: fewer than 2 CTAs fit an SM")
+    for name, res in tv.BUILD_INFO["resources"].items():
+        print(f"  {name}: {res['ctas_per_sm']} blocks of {res['threads']} "
+              f"threads resident per SM, {res['registers']} registers per "
+              "thread", flush=True)
 
     # ---- the scene of the main path
     scene, camera = menger_scene()
@@ -1315,14 +1802,33 @@ def main() -> None:
             args.out if args.profile else None)
         print(f"  oracles phase {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # ---- phase 6: the kernels line and the ok line
+        # ---- phase 6: pixel-band sharding and the LBVH kernels
+        print("phase 6: sharding and LBVH", flush=True)
+        t0 = time.perf_counter()
+        sharding = phase_sharding((peak_flops, hbm), out_dir)
+        lbvh, bvh_entries = phase_lbvh(
+            out_dir, (peak_flops, hbm), mismatches,
+            {k: v for k, v in scenes["terrain"]["rates"].items()})
+        print(f"  sharding and LBVH phase {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+    # ---- phase 7: the kernels line and the ok line
     for e in entries:
         e["scenes"] = dict(by_kernel[e["name"]], **by_kernel_o[e["name"]])
         e["max_abs_err"] = max(c["max_abs_err"] for c in mismatches[e["name"]])
+    for name in BVH_KERNELS:
+        checks = mismatches[name]
+        bvh_entries[name].update(
+            max_abs_err=max(c["max_abs_err"] for c in checks),
+            mismatch=dict(launches_checked=len(checks),
+                          lanes_checked=sum(c["lanes"] for c in checks),
+                          lanes_differ=sum(c["bad"] for c in checks)))
+        entries.append(bvh_entries[name])
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries, "frame_ms": timed,
                       "small_frames_agree": agree, "profile": profile,
                       "scenes": scenes, "oracles": oracles,
+                      "sharding": sharding, "lbvh": lbvh,
                       "device": name_power}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -13,10 +13,17 @@ Usage:
   python -m royaltracer_dx_tpu_torch.cli --renderer megakernel \\
       --scene sponza --width 1920 --height 1080 --frames 16
 
-Options of the JAX CLI whose renderers are not ported raise
-NotImplementedError naming the ROADMAP item that ports them:
-``--devices`` > 1 (A'9), ``--bvh`` and ``--traversal cluster|bvh``
-(A'11).  ``--scene reference`` reads
+  python -m royaltracer_dx_tpu_torch.cli --scene sponza --bvh \
+      --width 1920 --height 1080 --frames 8
+  python -m royaltracer_dx_tpu_torch.cli --cpu --devices 2 --scene cornell \
+      --width 32 --height 32 --frames 3
+
+``--bvh`` (or ``--traversal bvh``) traces through the LBVH kernels.
+``--devices N`` shards the ReSTIR render into N pixel bands
+(``parallel/shard.py``): with ``--cpu`` N bands on the CPU (the JAX CLI's
+virtual host devices), else on cuda:0 .. cuda:N-1; as in the JAX CLI the
+megakernel renderer ignores it.  ``--traversal cluster`` is not ported and
+raises NotImplementedError naming ROADMAP A'11.  ``--scene reference`` reads
 garage.obj and monke.obj from $ROYALTRACER_REFERENCE_INCLUDE (default:
 ``reference/`` at the repo root) and fails, as the JAX CLI does, when
 they are absent.  ``main`` returns the renderer and the per-frame times.
@@ -100,21 +107,26 @@ def build_scene(name: str):
         " | sponza | bunny | dragon)")
 
 
-def _sync(device) -> None:
+def _sync(renderer) -> None:
     import torch
 
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    for d in set(getattr(renderer, "devices", [renderer.device])):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
-def _unported(args) -> str | None:
-    if args.devices > 1:
-        return ("--devices > 1: pixel-band sharding is not ported (ROADMAP "
-                "A'9)")
-    if args.bvh or args.traversal in ("cluster", "bvh"):
-        return ("--bvh / --traversal cluster|bvh: the LBVH and cluster "
-                "traversals are not ported (ROADMAP A'11)")
-    return None
+def _band_devices(args) -> list[str]:
+    """The --devices bands: N on the CPU with --cpu, else one per card
+    (cli.py:160-166)."""
+    if args.cpu:
+        return ["cpu"] * args.devices
+    import torch
+
+    present = torch.cuda.device_count()
+    if present < args.devices:
+        raise SystemExit(f"--devices {args.devices} but only {present} "
+                         "present")
+    return [f"cuda:{i}" for i in range(args.devices)]
 
 
 def main(argv=None) -> dict:
@@ -130,14 +142,16 @@ def main(argv=None) -> dict:
     ap.add_argument("--traversal", default="",
                     choices=("", "brute", "cluster", "bvh"),
                     help="acceleration scheme (default: auto; on the card "
-                         "every trace runs the stream kernels)")
+                         "every trace runs the stream kernels, or with bvh "
+                         "the LBVH kernels)")
     ap.add_argument("--out", default="render.png")
     ap.add_argument("--snapshot-every", type=int, default=0)
     ap.add_argument("--checkpoint", default="", help="save/resume state npz")
     ap.add_argument("--cpu", action="store_true",
                     help="render on the CPU (the kernels' plain versions)")
     ap.add_argument("--devices", type=int, default=1,
-                    help="shard the render over N devices (not ported)")
+                    help="shard the ReSTIR render over N devices "
+                         "(pixel-band data parallelism)")
     ap.add_argument("--animate", action="store_true",
                     help="rotate instance 1 per frame and refit (the "
                          "reference's OnUpdate animation)")
@@ -150,9 +164,9 @@ def main(argv=None) -> dict:
                     help="TEA seed time term: frame counter (deterministic)"
                          " or wall-clock nanos (the reference's behavior)")
     args = ap.parse_args(argv)
-    why = _unported(args)
-    if why:
-        raise NotImplementedError(why)
+    if args.traversal == "cluster":
+        raise NotImplementedError("--traversal cluster: the cluster traversal"
+                                  " is not ported (ROADMAP A'11)")
 
     import torch
 
@@ -162,17 +176,22 @@ def main(argv=None) -> dict:
         load_renderer_state,
         save_renderer_state,
     )
+    from royaltracer_dx_tpu_torch.parallel.shard import ShardedRestirRenderer
     from royaltracer_dx_tpu_torch.render.renderer import Renderer
     from royaltracer_dx_tpu_torch.render.restir_renderer import RestirRenderer
     from royaltracer_dx_tpu_torch.utils.image import write_png
 
     cfg = RenderConfig(width=args.width, height=args.height,
-                       max_bounces=args.bounces,
+                       max_bounces=args.bounces, use_bvh=args.bvh,
                        traversal=args.traversal or "auto",
                        seed_mode=args.seed_mode)
     scene, camera = build_scene(args.scene)
-    cls = RestirRenderer if args.renderer == "restir" else Renderer
-    r = cls(scene, camera, cfg, device="cpu" if args.cpu else None)
+    if args.devices > 1 and args.renderer == "restir":
+        r = ShardedRestirRenderer(scene, camera, cfg,
+                                  devices=_band_devices(args))
+    else:
+        cls = RestirRenderer if args.renderer == "restir" else Renderer
+        r = cls(scene, camera, cfg, device="cpu" if args.cpu else None)
     if args.checkpoint and os.path.exists(args.checkpoint):
         load_renderer_state(args.checkpoint, r)
         print(f"resumed from {args.checkpoint} at frame {r.frame}")
@@ -198,7 +217,7 @@ def main(argv=None) -> dict:
             scene.set_transform(1, rot)
             t0 = time.perf_counter()
             r.update()
-            _sync(r.device)
+            _sync(r)
             refit_ms.append((time.perf_counter() - t0) * 1e3)
         r.render()
         m = r.metrics

@@ -63,8 +63,8 @@ class RenderConfig:
 
     aa_jitter: bool = True
 
-    # "auto" | "brute" | "stream" run in this port; "cluster" / "bvh"
-    # raise NotImplementedError (ops/restir.py).
+    # "auto" | "brute" | "stream" | "bvh" run in this port; "cluster"
+    # raises NotImplementedError (ops/restir.py).
     traversal: str = "auto"
     stream_wb: int = 16
     # GI wavefront compaction: "on" | "off" | "auto" ("auto" turns it on

@@ -5,23 +5,27 @@ The state is the renderer's ``state_dict`` arrays, saved as one npz under
 the JAX package's key names, so a checkpoint crosses between the two
 packages in either direction:
 
-  restir      format, frame, prev_view, prev_proj, fb.accum, fb.count, l1,
-              last_di.*, last_gi.*, last_sdata.*   (``RestirRenderer``)
-  megakernel  format, frame, prev_view, fb.accum, fb.count   (``Renderer``)
-
-The sharded-ReSTIR format belongs to a renderer the port does not have
-yet; loading it raises a ValueError that names it.
+  restir          format, frame, prev_view, prev_proj, fb.accum,
+                  fb.count, l1, last_di.*, last_gi.*, last_sdata.*
+                  (``RestirRenderer``)
+  sharded_restir  format, frame, prev_view, prev_proj, fb.accum,
+                  fb.count, l1, packed_di.{0,1,2}, packed_gi.{0,1,2}, as
+                  global [N, ...] arrays (``ShardedRestirRenderer``; the
+                  legacy monolithic [N, 26] packed_di / packed_gi tables
+                  load too)
+  megakernel      format, frame, prev_view, fb.accum, fb.count
+                  (``Renderer``)
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-_UNPORTED = {"sharded_restir": "the sharded ReSTIR renderer (ROADMAP A'9)"}
-
 
 def _format_of(renderer) -> str:
     """The format a renderer saves and restores (checkpoint.py:28-33)."""
+    if hasattr(renderer, "bands"):
+        return "sharded_restir"
     return "restir" if hasattr(renderer, "last_di") else "megakernel"
 
 
@@ -34,8 +38,8 @@ def _format_of_npz(data) -> str:
 
 
 def save_renderer_state(path: str, renderer) -> None:
-    """Save a Renderer's or RestirRenderer's progressive state as a
-    compressed npz."""
+    """Save a Renderer's, RestirRenderer's or ShardedRestirRenderer's
+    progressive state as a compressed npz."""
     np.savez_compressed(path, **renderer.state_dict())
 
 
@@ -47,11 +51,6 @@ def load_renderer_state(path: str, renderer) -> None:
     with np.load(path) as data:
         have = _format_of_npz(data)
         want = _format_of(renderer)
-        if have in _UNPORTED:
-            raise ValueError(
-                f"checkpoint format {have!r} is not ported: it needs "
-                f"{_UNPORTED[have]}; this package restores 'restir' and "
-                "'megakernel' states")
         if have != want:
             raise ValueError(
                 f"checkpoint format {have!r} does not match renderer "

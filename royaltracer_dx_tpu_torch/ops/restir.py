@@ -5,12 +5,15 @@ Tracing with v6 hit semantics, reconnection p-hat, NEE / BSDF candidates,
 pairwise MIS, spatial rejection tests and reprojection — the functions the
 renderer and restir_gi call.
 
-Trace dispatch: on the card every closest-hit and occlusion batch launches
-the stream kernels (ops/stream_trace.py), whatever ``cfg.traversal`` says
-("auto" / "brute" / "stream"); on the CPU the port follows the JAX
-package's decisions (``resolve_closest_mode`` / ``resolve_any_mode``,
-:88-107) between brute force and the stream kernels' plain version.  The
-"bvh" and "cluster" traversals are not ported and raise.
+Trace dispatch: under traversal "bvh" every closest-hit and occlusion
+batch goes through the LBVH (ops/traverse.py: the kernels on the card,
+their plain versions on the CPU), as in the JAX package (:198-201,
+:235-238).  Otherwise on the card every batch launches the stream kernels
+(ops/stream_trace.py), whatever ``cfg.traversal`` says ("auto" / "brute" /
+"stream"); on the CPU the port follows the JAX package's decisions
+(``resolve_closest_mode`` / ``resolve_any_mode``, :88-107) between brute
+force and the stream kernels' plain version.  The "cluster" traversal is
+not ported and raises.
 
 The JAX package splits trace batches above 4M rays into sequential chunks
 (``_chunked_rays``, :143-168) to fit TPU HBM; on an 80 GB card a whole
@@ -42,6 +45,7 @@ from royaltracer_dx_tpu_torch.ops.stream_trace import (
     any_hit_stream,
     closest_hit_stream,
 )
+from royaltracer_dx_tpu_torch.ops.traverse import any_hit_bvh, closest_hit_bvh
 from royaltracer_dx_tpu_torch.scene.types import SceneArrays
 from royaltracer_dx_tpu_torch.utils import pvec as pv
 from royaltracer_dx_tpu_torch.utils.rng import tea_batch_at
@@ -99,17 +103,23 @@ def wants_gi_compaction(scene: SceneArrays, cfg: RenderConfig) -> bool:
 
 
 def check_traversal(cfg: RenderConfig) -> None:
-    """Raise for the traversals the port does not have."""
-    if cfg.accel in ("bvh", "cluster"):
+    """Raise for the traversal the port does not have."""
+    if cfg.accel == "cluster":
         raise NotImplementedError(
             f"traversal={cfg.accel!r} is not ported (ROADMAP A'11); use "
-            "auto, brute or stream")
+            "auto, brute, stream or bvh")
 
 
 def trace_mode(scene: SceneArrays, cfg: RenderConfig, n: int,
                coherent: bool = True, closest: bool = True) -> str:
-    """Which trace a batch takes: "stream" (the kernels) or "brute"."""
+    """Which trace a batch takes: "bvh" (the LBVH kernels), "stream" (the
+    stream kernels) or "brute"."""
     check_traversal(cfg)
+    if cfg.accel == "bvh":
+        if scene.bvh is None:
+            raise ValueError("traversal='bvh' on a scene without an LBVH "
+                             "(Scene.flatten(build_bvh=True) builds it)")
+        return "bvh"
     if scene.device.type == "cuda":
         if scene.stream is None:
             raise ValueError("CUDA scene without a stream accel "
@@ -125,7 +135,10 @@ def _closest_dispatch(scene: SceneArrays, origins, dirs, cfg: RenderConfig,
     """The TraceRay dispatch (:171-213)."""
     op, dp = as_planes3(origins), as_planes3(dirs)
     n = op[0].shape[0]
-    if trace_mode(scene, cfg, n, coherent, True) == "stream":
+    mode = trace_mode(scene, cfg, n, coherent, True)
+    if mode == "bvh":
+        return closest_hit_bvh(op, dp, scene.bvh, t_min, t_max)
+    if mode == "stream":
         return closest_hit_stream(op, dp, scene.stream, t_min, t_max,
                                   wb=cfg.stream_wb)
     return closest_hit_brute(op, dp, scene.tri_verts, t_min, t_max)
@@ -136,7 +149,10 @@ def _any_dispatch(scene: SceneArrays, origins, dirs, cfg: RenderConfig,
     """The shadow TraceRay dispatch (:216-248)."""
     op, dp = as_planes3(origins), as_planes3(dirs)
     n = op[0].shape[0]
-    if trace_mode(scene, cfg, n, True, False) == "stream":
+    mode = trace_mode(scene, cfg, n, True, False)
+    if mode == "bvh":
+        return any_hit_bvh(op, dp, scene.bvh, t_min, t_max)
+    if mode == "stream":
         return any_hit_stream(op, dp, scene.stream, t_min, t_max,
                               wb=cfg.stream_wb)
     return any_hit_brute(op, dp, scene.tri_verts, t_min, t_max)

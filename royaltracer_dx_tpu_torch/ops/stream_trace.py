@@ -545,6 +545,11 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-Xptxas", "-v"]
 _LIB = None
 BUILD_INFO: dict = {}
+# the C interface of csrc/stream_trace.cu: ctypes argument types by name
+STREAM_SIGNATURES = {
+    name: [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p]
+    for name in ("stream_closest", "stream_any")}
 
 
 def _nvcc() -> str:
@@ -554,22 +559,25 @@ def _nvcc() -> str:
     cand = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(cand):
         return cand
-    raise RuntimeError("nvcc not found: the stream kernels are built from "
-                       "csrc/stream_trace.cu at first use on a CUDA machine")
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "csrc/*.cu at first use on a CUDA machine")
 
 
-def build_library(src_path: str, extra=()):
+def build_library(src_path: str, extra=(), signatures=None):
     """Compile one CUDA source with nvcc for sm_90a (the package's flags
-    plus ``extra``) into _build/, keyed by the hash of source and flags so
-    that an edit rebuilds, and load it with ctypes.  Returns (library,
-    info); info holds the path, the seconds the build took, nvcc's log
-    and the flags."""
+    plus ``extra``) into _build/, named after the source and keyed by the
+    hash of source and flags so that an edit rebuilds, and load it with
+    ctypes, binding ``signatures`` ({function: argtypes}, each returning
+    an int error code; the stream kernels' by default).  Returns (library,
+    info); info holds the path, the seconds the build took, nvcc's log and
+    the flags."""
     flags = [*_NVCC_FLAGS, *extra]
     with open(src_path, "rb") as f:
         src = f.read()
     key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    so = os.path.join(_BUILD_DIR, f"libstream_trace_{key}.so")
+    stem = os.path.splitext(os.path.basename(src_path))[0]
+    so = os.path.join(_BUILD_DIR, f"lib{stem}_{key}.so")
     t0 = time.perf_counter()
     log = ""
     if not os.path.exists(so):
@@ -581,10 +589,9 @@ def build_library(src_path: str, extra=()):
             raise RuntimeError(f"nvcc failed building {src_path}:\n{log}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(so)
-    for name in ("stream_closest", "stream_any"):
+    for name, argtypes in (signatures or STREAM_SIGNATURES).items():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int,
-                                               ctypes.c_void_p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib, dict(path=so, seconds=time.perf_counter() - t0, log=log,
                      flags=flags)

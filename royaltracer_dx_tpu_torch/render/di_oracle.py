@@ -39,12 +39,13 @@ class DiOracle:
         self.cfg = cfg
         self.device = resolve_device(device)
         dev = self.device
-        # the JAX package flattens without the stream accel (:41), so its
-        # oracle fails under traversal="stream"; the port builds it where
+        # the JAX package flattens without any accel (:41), so its oracle
+        # fails under traversal="stream" or "bvh"; the port builds what
         # the megakernel Renderer would
         sa = scene.flatten(scene.build_materials(device=dev),
                            build_stream=rr._wants_stream(scene, cfg),
-                           device=dev)
+                           build_bvh=cfg.accel == "bvh",
+                           bvh_leaf_size=cfg.bvh_leaf_size, device=dev)
         self.scene_arrays = sa
         ca = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
               for k, v in camera.matrices(cfg.width / cfg.height).items()}

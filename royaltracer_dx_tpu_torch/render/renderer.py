@@ -76,6 +76,7 @@ class Renderer:
         self.materials = scene.build_materials(device=self.device)
         self.scene_arrays = scene.flatten(
             self.materials, build_stream=_wants_stream(scene, cfg),
+            build_bvh=cfg.accel == "bvh", bvh_leaf_size=cfg.bvh_leaf_size,
             device=self.device)
         self.fb = Framebuffer.create(cfg.num_pixels, self.device)
         self.frame = 0

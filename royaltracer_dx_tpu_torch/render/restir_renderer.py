@@ -32,8 +32,15 @@ flags are computed on the stored values (:110-168).
 ``update()`` refits the scene after ``Scene.set_transform``;
 ``render_many(k)`` runs k frames with one synchronisation; GI wavefront
 compaction (``pass1_gi_bounce_compact``) runs where
-``restir.wants_gi_compaction`` says.  Not ported: per-pass profiling and
-pixel-band sharding.
+``restir.wants_gi_compaction`` says; ``profile = True`` times each pass
+and reports the occupancy.
+
+Pixel-band sharding (parallel/shard.py) runs the same passes on a band of
+rows: ``xs`` / ``ys`` are the band's GLOBAL pixel coordinates (seeds and
+camera rays), and pass 2 / pass 3 index their gather tables through the
+band's local window of rows [row0, row0 + band_h), which the sharded
+renderer extends by halo rows from the neighbouring bands.  The defaults
+(the whole image) give the single-device frame.
 """
 
 from __future__ import annotations
@@ -160,6 +167,23 @@ def _unpack_record(rows: tuple, keys: tuple) -> tuple[dict, dict]:
     return sd, res
 
 
+def _shards_from_legacy(rows, keys: tuple) -> tuple:
+    """A legacy monolithic [N, 26] packed table (columns x1 n1 o l1 mid
+    obj vec0 vec1 vec2 w_sum w m) as the three shards (:192-206); read by
+    the checkpoint loader only."""
+    c = rows.to(_F)
+    sd = dict(x1=(c[..., 0], c[..., 1], c[..., 2]),
+              n1=(c[..., 3], c[..., 4], c[..., 5]),
+              o=(c[..., 6], c[..., 7], c[..., 8]),
+              l1=(c[..., 9], c[..., 10], c[..., 11]),
+              mid=c[..., 12].to(_I), obj=c[..., 13].to(_I))
+    res = {keys[0]: (c[..., 14], c[..., 15], c[..., 16]),
+           keys[1]: (c[..., 17], c[..., 18], c[..., 19]),
+           keys[2]: (c[..., 20], c[..., 21], c[..., 22]),
+           "w_sum": c[..., 23], "w": c[..., 24], "m": c[..., 25]}
+    return _pack_record(sd, res, keys, rows.dtype)
+
+
 def _unpack_res(r1, r2, keys: tuple) -> dict:
     """Reservoir planes from gathered S1/S2 rows only (:209-218)."""
     r1 = r1.to(_F)
@@ -173,10 +197,14 @@ def _unpack_res(r1, r2, keys: tuple) -> dict:
 # ================================ PASS 1 =================================
 
 
-def pass1_di(scene, cam: dict, frame: int, cfg: RenderConfig):
+def pass1_di(scene, cam: dict, frame: int, cfg: RenderConfig, xs=None,
+             ys=None):
     """Primary trace + SampleRIS + visibility W (:224-309, pass1:49-171).
-    Returns (reservoir DI planes, sdata planes, gi_inputs, seed)."""
-    xs, ys = _pixel_grid(cfg, scene.device)
+    ``xs`` / ``ys``: the GLOBAL pixel coordinates of the lanes (default:
+    the whole image).  Returns (reservoir DI planes, sdata planes,
+    gi_inputs, seed)."""
+    if xs is None:
+        xs, ys = _pixel_grid(cfg, scene.device)
     seed = pixel_seed(xs, ys, 1, frame)
     origins, dirs = generate_rays(cam, cfg.width, cfg.height, xs=xs, ys=ys)
     dirs = m3.normalize(dirs)
@@ -314,11 +342,17 @@ def pass1_gi_final(scene, gi_inputs: dict, st: dict, cfg: RenderConfig):
 
 def pass2_temporal(scene, cam: dict, frame: int, cur_di: dict, cur_gi: dict,
                    sdata: dict, last_packed_di: tuple, last_packed_gi: tuple,
-                   cfg: RenderConfig):
+                   cfg: RenderConfig, xs=None, ys=None, row0: int = 0,
+                   band_h: int | None = None):
     """Temporal reuse (:378-520, RayGen_v6_pass2.hlsl:47-204).  Reprojected
     pixels outside the image reject temporal reuse (the reference reads
-    garbage there)."""
-    xs, ys = _pixel_grid(cfg, scene.device)
+    garbage there).  On a band (xs / ys its global coordinates), the last
+    tables hold the rows [row0, row0 + band_h) and a reprojection outside
+    them rejects temporal reuse too."""
+    if xs is None:
+        xs, ys = _pixel_grid(cfg, scene.device)
+    if band_h is None:
+        band_h = cfg.height
     seed = pixel_seed(xs, ys, 2, frame)
     cam_pos = tuple(cam["view_inv"][c, 3] for c in range(3))
     shading = ~((sdata["l1"][0] != 0.0) | (sdata["l1"][1] != 0.0)
@@ -327,9 +361,12 @@ def pass2_temporal(scene, cam: dict, frame: int, cur_di: dict, cur_gi: dict,
     px, py = restir.reproject_to_prev_pixel_p(
         scene, sdata["x1"], sdata["obj"], cam["prev_view"], cam["prev_proj"],
         cfg.width, cfg.height)
+    # global image bounds, then the local window of the band's rows
+    ly = py - row0
     in_bounds = ((px >= 0) & (px < cfg.width)
-                 & (py >= 0) & (py < cfg.height))
-    idx = (torch.clamp(py, 0, cfg.height - 1) * cfg.width
+                 & (py >= 0) & (py < cfg.height)
+                 & (ly >= 0) & (ly < band_h))
+    idx = (torch.clamp(ly, 0, band_h - 1) * cfg.width
            + torch.clamp(px, 0, cfg.width - 1))
 
     # 3 + 2 narrow shard gathers (the GI table shares sdata with DI)
@@ -437,10 +474,15 @@ def pass2_temporal(scene, cam: dict, frame: int, cur_di: dict, cur_gi: dict,
 # ================================ PASS 3 =================================
 
 
-def _spatial_try_at(xs, ys, cfg: RenderConfig, seed, t: int):
+def _spatial_try_at(xs, ys, cfg: RenderConfig, seed, t: int, row0: int = 0,
+                    band_h: int | None = None):
     """Weighted-disk neighbor pick #t (:593-625, Common_v6.hlsl:203-241):
-    counters 2t / 2t+1 of ``seed``, mirror-clamped at the image borders.
-    Returns (pixel index [N], is_center [N])."""
+    counters 2t / 2t+1 of ``seed``, mirror-clamped at the IMAGE borders.
+    The row then becomes a row of the local window [row0, row0 + band_h)
+    (the whole image by default; a band's window extended by halo rows
+    under sharding).  Returns (local pixel index [N], is_center [N])."""
+    if band_h is None:
+        band_h = cfg.height
     u_r = tea_batch_at(seed, 2 * t)
     u_a = tea_batch_at(seed, 2 * t + 1)
     r = cfg.spatial_radius * torch.pow(u_r, cfg.spatial_exponent)
@@ -448,11 +490,11 @@ def _spatial_try_at(xs, ys, cfg: RenderConfig, seed, t: int):
     ox = (torch.cos(ang) * r).to(_I)
     oy = (torch.sin(ang) * r).to(_I)
     nx = restir.mirror_clamp(xs + ox, cfg.width)
-    ny = restir.mirror_clamp(ys + oy, cfg.height)
+    ny = restir.mirror_clamp(ys + oy, cfg.height)      # global row mirror
     nx = torch.clamp(nx, 0, cfg.width - 1)
-    ny = torch.clamp(ny, 0, cfg.height - 1)
+    ly = torch.clamp(ny - row0, 0, band_h - 1)         # local window row
     is_center = (nx == xs) & (ny == ys)
-    return ny * cfg.width + nx, is_center
+    return ly * cfg.width + nx, is_center
 
 
 def _claim_first_k(accept_t, pidx_t, cnt, sel_pidx, ok, k: int):
@@ -468,7 +510,7 @@ def _claim_first_k(accept_t, pidx_t, cnt, sel_pidx, ok, k: int):
 
 
 def _gi_candidates(cur_gi, sdata, mat, packed_gi, cam_pos, xs, ys, cfg,
-                   seed):
+                   seed, row0: int = 0, band_h: int | None = None):
     """GI candidate picks (:628-709, pass3:144-189), one flat [N] pipeline
     per try.  The accept chain reads S0 and S1 from ONE f16 table; the k
     chosen candidates re-gather all three f32 shards.  Returns (gi_ok,
@@ -481,7 +523,8 @@ def _gi_candidates(cur_gi, sdata, mat, packed_gi, cam_pos, xs, ys, cfg,
     gi_ok = [torch.zeros(xs.shape, dtype=torch.bool, device=xs.device)
              for _ in range(k)]
     for t in range(cfg.spatial_max_tries):
-        pidx_t, is_center_t = _spatial_try_at(xs, ys, cfg, seed, t)
+        pidx_t, is_center_t = _spatial_try_at(xs, ys, cfg, seed, t, row0,
+                                              band_h)
         g01 = _tap_gather(s01, pidx_t).to(_F)                  # [N, 16]
         g0, g1 = g01[:, :8], g01[:, 8:]
         g_x1 = (g0[:, 0], g0[:, 1], g0[:, 2])
@@ -526,11 +569,17 @@ def _gi_candidates(cur_gi, sdata, mat, packed_gi, cam_pos, xs, ys, cfg,
 
 
 def pass3_spatial(scene, cam: dict, frame: int, cur_di: dict, cur_gi: dict,
-                  sdata: dict, cfg: RenderConfig):
+                  sdata: dict, cfg: RenderConfig, xs=None, ys=None,
+                  row0: int = 0, band_h: int | None = None,
+                  packed_di_ext=None, packed_gi_ext=None):
     """Spatial reuse + final shade (:712-969, RayGen_v6_pass3.hlsl:47-463).
     Returns (radiance sample [N, 3], shading mask, out_di planes, out_gi
-    planes)."""
-    xs, ys = _pixel_grid(cfg, scene.device)
+    planes).  On a band (see pass2_temporal), ``packed_di_ext`` /
+    ``packed_gi_ext`` are the current frame's packed tables over the
+    band's halo-extended window, so that taps cross band borders; without
+    them the tables are packed here from this call's lanes."""
+    if xs is None:
+        xs, ys = _pixel_grid(cfg, scene.device)
     seed = pixel_seed(xs, ys, 3, frame)
     cam_pos = tuple(cam["view_inv"][c, 3] for c in range(3))
     shading = ~((sdata["l1"][0] != 0.0) | (sdata["l1"][1] != 0.0)
@@ -539,9 +588,12 @@ def pass3_spatial(scene, cam: dict, frame: int, cur_di: dict, cur_gi: dict,
     k = cfg.spatial_candidate_count
     zero = shading.to(_F) * 0.0
 
-    rd = _rec_dtype(cfg)
-    packed_di = _pack_record(sdata, cur_di, _DI_KEYS, rd)
-    packed_gi = _pack_record(sdata, cur_gi, _GI_KEYS, rd)
+    if packed_di_ext is None:
+        rd = _rec_dtype(cfg)
+        packed_di = _pack_record(sdata, cur_di, _DI_KEYS, rd)
+        packed_gi = _pack_record(sdata, cur_gi, _GI_KEYS, rd)
+    else:
+        packed_di, packed_gi = packed_di_ext, packed_gi_ext
 
     # ---- DI candidates (pass3:107-142): each try gathers only the f16
     # ACCEPT row (x1/n1/mid/flags); the k chosen candidates' payload,
@@ -552,7 +604,8 @@ def pass3_spatial(scene, cam: dict, frame: int, cur_di: dict, cur_gi: dict,
     di_ok = [torch.zeros(xs.shape, dtype=torch.bool, device=xs.device)
              for _ in range(k)]
     for t in range(cfg.spatial_max_tries):
-        pidx_t, is_center_t = _spatial_try_at(xs, ys, cfg, seed, t)
+        pidx_t, is_center_t = _spatial_try_at(xs, ys, cfg, seed, t, row0,
+                                              band_h)
         r0 = _tap_gather(acc_di, pidx_t).to(_F)                # [N, 8]
         c_mid = r0[:, 6].to(_I)
         accept_t = (
@@ -597,7 +650,8 @@ def pass3_spatial(scene, cam: dict, frame: int, cur_di: dict, cur_gi: dict,
     # every visibility-bearing p-hat of this pass (k DI p_hat_from, k GI
     # p_hat_from, k GI shift targets) shares ONE 3k*N shadow batch
     gi_ok, nb_gi, nb_sd_g, seed = _gi_candidates(
-        cur_gi, sdata, mat, packed_gi, cam_pos, xs, ys, cfg, seed)
+        cur_gi, sdata, mat, packed_gi, cam_pos, xs, ys, cfg, seed, row0,
+        band_h)
     vis_all = [] if k == 0 else restir.visibility_batch_p(
         scene,
         [(nb_sd[v]["x1"], nb_sd[v]["n1"], cur_di["x2"], shading & di_ok[v])
@@ -756,15 +810,18 @@ def _pack_last(last_di: dict, last_gi: dict, last_sdata: dict,
 
 
 def _frame_body(scene, cam_base: dict, cfg: RenderConfig, st: dict,
-                frame: int):
+                frame: int, tick=None):
     """One full ReSTIR frame as a state -> state function (:994-1042).
 
     st: dict(last_di, last_gi, last_sdata, fb, l1, prev_view, prev_proj).
+    ``tick(label)``, when given, is called after each pass (profile mode).
     Returns (new state, occupancy [1 + gi_bounces] on the device: the
     pass-1 sampling share and each GI bounce's active share, for the ray
     accounting of RestirRenderer.metrics)."""
+    tick = tick or (lambda label: None)
     cam = dict(cam_base, prev_view=st["prev_view"], prev_proj=st["prev_proj"])
     res_di, sdata, gi_in, seed = pass1_di(scene, cam, frame, cfg)
+    tick("pass1_di")
     occ = [gi_in["sampling"].to(_F).mean()]
     gst = pass1_gi_init(scene, gi_in, seed, cfg)
     # compaction pays two argsorts and two permutations of the whole
@@ -776,13 +833,17 @@ def _frame_body(scene, cam_base: dict, cfg: RenderConfig, st: dict,
         occ.append(gst["active"].to(_F).mean())
         gst = bounce_fn(scene, cfg, gst, b)
     res_gi, _ = pass1_gi_final(scene, gi_in, gst, cfg)
+    tick("pass1_gi")
     if cfg.temporal_reuse:
         packed_di, packed_gi = _pack_last(st["last_di"], st["last_gi"],
                                           st["last_sdata"], _rec_dtype(cfg))
+        tick("pack_last")
         res_di, res_gi = pass2_temporal(scene, cam, frame, res_di, res_gi,
                                         sdata, packed_di, packed_gi, cfg)
+    tick("pass2_temporal")
     sample, shaded, out_di, out_gi = pass3_spatial(
         scene, cam, frame, res_di, res_gi, sdata, cfg)
+    tick("pass3_spatial")
     sdata_s = from_planes({k: sdata[k] for k in _SD_KEYS})
     changed = torch.any(torch.abs(cam["view"] - st["prev_view"]) > S_BIAS)
     fb = accumulate(st["fb"], sample, changed, cfg.max_accum_frames)
@@ -804,6 +865,69 @@ def _frame_body(scene, cam_base: dict, cfg: RenderConfig, st: dict,
     return new_st, torch.stack(occ)
 
 
+def ray_metrics(cfg: RenderConfig, ov, dt: float, frame: int) -> dict:
+    """The frame's ray accounting (:1202-1230) from its occupancy vector
+    ``ov`` (float64: the pass-1 sampling share, then each GI bounce's
+    active share): lock-step LANES per pixel (pass 1: primary + BSDF-DI +
+    W visibility + GI init, bounces, final shadow; pass 2: 2 visibility;
+    pass 3: (2k+1) DI + 2k GI visibility), and the ACTIVE rays among
+    them."""
+    k = cfg.spatial_candidate_count
+    b_gi = cfg.gi_bounces
+    lanes = cfg.num_pixels * ((3 + 1) + (1 + b_gi + 1) + 2 + (3 * k + 1 + 2))
+    s1 = float(ov[0])
+    active_pp = (1.0 + 4.0 * s1 + float(ov[1:].sum()) + 2.0 * s1
+                 + (3 * k + 1 + 2) * s1)
+    rays_active = cfg.num_pixels * active_pp
+    return dict(frame_time_s=dt, fps=1.0 / max(dt, 1e-9), frame=frame,
+                rays_traced=rays_active, ray_lanes=lanes, pass1_sampling=s1,
+                mrays_per_s=rays_active / dt / 1e6,
+                mray_lanes_per_s=lanes / dt / 1e6)
+
+
+def occupancy_metrics(cfg: RenderConfig, ov) -> dict:
+    """Profile mode's occupancy entries (:1231-1236)."""
+    occupancy = {"pass1_sampling": float(ov[0])}
+    for b in range(cfg.gi_bounces):
+        occupancy[f"gi_bounce{b}_active"] = float(ov[1 + b])
+    return occupancy
+
+
+def pass_timer(devices, t0: float, pass_times: dict):
+    """Profile mode's tick: wait for ``devices``, then book the time since
+    the previous tick under ``label`` (:1130-1139).  Every tick is a
+    synchronisation, so profiled frames are indicative, not additive."""
+    def tick(label: str) -> None:
+        for d in devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+        now = time.perf_counter()
+        pass_times[label] = now - (t0 + sum(pass_times.values()))
+    return tick
+
+
+def check_config(scene: Scene, cfg: RenderConfig) -> None:
+    """Raise for the options a ReSTIR renderer cannot take."""
+    restir.check_traversal(cfg)
+    if cfg.gi_compaction not in ("auto", "on", "off"):
+        raise ValueError(f"gi_compaction={cfg.gi_compaction!r}")
+    if cfg.record_dtype not in _REC_DTYPES:
+        raise ValueError(f"record_dtype={cfg.record_dtype!r}: one of "
+                         f"{sorted(_REC_DTYPES)}")
+    # material and instance ids travel as values in half-precision
+    # columns, exact below 2^(mantissa + 1) (:1074-1082): 2^11 in pass 3's
+    # f16 accept tables, which ship at every record_dtype (the JAX package
+    # checks only f16/bf16 payloads), 2^8 in bf16 payloads
+    lim = 256 if cfg.record_dtype == "bf16" else 2048
+    n_mat = len(scene._materials)
+    n_inst = len(scene.instance_mesh)
+    if n_mat >= lim or n_inst >= lim:
+        raise ValueError(
+            f"record_dtype='{cfg.record_dtype}' (and pass 3's f16 accept "
+            f"tables) need material ({n_mat}) and instance ({n_inst}) "
+            f"counts < {lim}")
+
+
 def _wants_stream(scene: Scene, cfg: RenderConfig) -> bool:
     """Build the stream accel for traversal="stream" or a big-scene auto
     (:1290-1296); on the card flatten builds it regardless."""
@@ -821,25 +945,7 @@ class RestirRenderer:
 
     def __init__(self, scene: Scene, camera: Camera, cfg: RenderConfig,
                  device=None):
-        restir.check_traversal(cfg)
-        if cfg.gi_compaction not in ("auto", "on", "off"):
-            raise ValueError(f"gi_compaction={cfg.gi_compaction!r}")
-        if cfg.record_dtype not in _REC_DTYPES:
-            raise ValueError(f"record_dtype={cfg.record_dtype!r}: one of "
-                             f"{sorted(_REC_DTYPES)}")
-        # material and instance ids travel as values in half-precision
-        # columns, exact below 2^(mantissa + 1) (:1074-1082): 2^11 in
-        # pass 3's f16 accept tables, which ship at every record_dtype
-        # (the JAX package checks only f16/bf16 payloads), 2^8 in bf16
-        # payloads
-        lim = 256 if cfg.record_dtype == "bf16" else 2048
-        n_mat = len(scene._materials)
-        n_inst = len(scene.instance_mesh)
-        if n_mat >= lim or n_inst >= lim:
-            raise ValueError(
-                f"record_dtype='{cfg.record_dtype}' (and pass 3's f16 accept "
-                f"tables) need material ({n_mat}) and instance ({n_inst}) "
-                f"counts < {lim}")
+        check_config(scene, cfg)
         self.device = resolve_device(device)
         self.scene = scene
         self.camera = camera
@@ -847,6 +953,7 @@ class RestirRenderer:
         self.materials = scene.build_materials(device=self.device)
         self.scene_arrays = scene.flatten(
             self.materials, build_stream=_wants_stream(scene, cfg),
+            build_bvh=cfg.accel == "bvh", bvh_leaf_size=cfg.bvh_leaf_size,
             device=self.device)
         n = cfg.num_pixels
         dev = self.device
@@ -863,6 +970,8 @@ class RestirRenderer:
         self._prev_view = torch.zeros((4, 4), dtype=_F, device=dev)
         self._prev_proj = torch.zeros((4, 4), dtype=_F, device=dev)
         self.metrics: dict = {}
+        # opt-in per-pass timing and occupancy (each pass ends in a sync)
+        self.profile = False
 
     def _camera_arrays(self) -> dict:
         mats = self.camera.matrices(self.cfg.width / self.cfg.height)
@@ -902,34 +1011,19 @@ class RestirRenderer:
         else:
             frame = self.frame
         t0 = time.perf_counter()
+        pass_times: dict = {}
+        tick = (pass_timer([self.device], t0, pass_times) if self.profile
+                else None)
         st, occ = _frame_body(self.scene_arrays, self._camera_arrays(), cfg,
-                              self._state(), frame)
+                              self._state(), frame, tick)
         self._set_state(st)
         ov = occ.double().cpu().numpy()   # waits for the frame
         dt = time.perf_counter() - t0
         self.frame += 1
-        # ray accounting (:1202-1230): lock-step LANES per pixel (pass 1:
-        # primary + BSDF-DI + W visibility + GI init, bounces, final
-        # shadow; pass 2: 2 visibility; pass 3: (2k+1) DI + 2k GI
-        # visibility), and the ACTIVE rays among them
-        k = cfg.spatial_candidate_count
-        b_gi = cfg.gi_bounces
-        lanes_pp = (3 + 1) + (1 + b_gi + 1) + 2 + (3 * k + 1 + 2)
-        lanes = cfg.num_pixels * lanes_pp
-        s1 = float(ov[0])
-        active_pp = (1.0 + 4.0 * s1 + float(ov[1:].sum()) + 2.0 * s1
-                     + (3 * k + 1 + 2) * s1)
-        rays_active = cfg.num_pixels * active_pp
-        self.metrics = dict(
-            frame_time_s=dt,
-            fps=1.0 / max(dt, 1e-9),
-            frame=self.frame,
-            rays_traced=rays_active,
-            ray_lanes=lanes,
-            pass1_sampling=s1,
-            mrays_per_s=rays_active / dt / 1e6,
-            mray_lanes_per_s=lanes / dt / 1e6,
-        )
+        self.metrics = ray_metrics(cfg, ov, dt, self.frame)
+        if self.profile:
+            self.metrics["pass_times_s"] = pass_times
+            self.metrics["occupancy"] = occupancy_metrics(cfg, ov)
 
     def render_many(self, k: int) -> None:
         """Render k frames and synchronise once at the end (:1238-1271):

@@ -1,12 +1,13 @@
 """Scene: meshes, materials, instances (port of
 royaltracer_dx_tpu/scene/scene.py:30-261).
 
-On the card ``flatten`` always builds the stream accel: every trace there
-runs the stream kernels (ops/restir.py).  With ``prev`` (the previous
-frame's arrays) ``flatten`` is the per-frame refit: the object-space
-arrays stay cached on the device, ``_world_bake`` re-bakes world space
-there and the stream accel refits with the build's order, so no host work
-grows with the triangle count.
+On the card ``flatten`` builds the stream accel unless it builds the LBVH
+(``build_bvh``): every trace there runs the stream kernels, or under
+traversal "bvh" the LBVH kernels (ops/restir.py).  With ``prev`` (the
+previous frame's arrays) ``flatten`` is the per-frame refit: the
+object-space arrays stay cached on the device, ``_world_bake`` re-bakes
+world space there and each built structure refits with the build's order,
+so no host work grows with the triangle count.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ class Scene:
         self.instance_mesh: list[int] = []
         self.transforms: list[np.ndarray] = []
         self.prev_transforms: list[np.ndarray] = []
-        self._static = None
+        self._static: dict = {}
 
     def add_material(self, **mat) -> int:
         """Add a material dict; returns its global id (scene.py:40-46)."""
@@ -48,7 +49,7 @@ class Scene:
                  tri_material=None) -> int:
         """Add a mesh whose tri_material holds GLOBAL material ids."""
         self.meshes.append(MeshData(vertices, indices, normals, tri_material))
-        self._static = None
+        self._static = {}
         return len(self.meshes) - 1
 
     def add_obj(self, path: str) -> int:
@@ -60,7 +61,7 @@ class Scene:
         self.meshes.append(MeshData(data["vertices"], data["indices"],
                                     data["normals"],
                                     data["tri_material"] + offset))
-        self._static = None
+        self._static = {}
         return len(self.meshes) - 1
 
     def add_instance(self, mesh_id: int, transform=None) -> int:
@@ -69,7 +70,7 @@ class Scene:
         self.instance_mesh.append(mesh_id)
         self.transforms.append(np.asarray(transform, np.float32))
         self.prev_transforms.append(np.asarray(transform, np.float32))
-        self._static = None
+        self._static = {}
         return len(self.instance_mesh) - 1
 
     def set_transform(self, instance_id: int, transform):
@@ -110,10 +111,12 @@ class Scene:
 
     def _object_static(self, dev: torch.device):
         """Concatenated OBJECT-space triangle arrays + material and
-        instance maps on ``dev`` (scene.py:121-140), built once and cached
-        until a mesh or an instance is added."""
-        if self._static is not None and self._static[0].device == dev:
-            return self._static
+        instance maps on ``dev`` (scene.py:121-140), built once per device
+        and cached until a mesh or an instance is added."""
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if dev in self._static:
+            return self._static[dev]
         tv, tn, tm, ti = [], [], [], []
         for inst, mesh_id in enumerate(self.instance_mesh):
             mesh = self.meshes[mesh_id]
@@ -121,19 +124,22 @@ class Scene:
             tn.append(mesh.normals[mesh.indices])
             tm.append(mesh.tri_material)
             ti.append(np.full(mesh.num_triangles, inst, np.int32))
-        self._static = tuple(
+        self._static[dev] = tuple(
             torch.as_tensor(np.concatenate(a).astype(dt), device=dev)
             for a, dt in ((tv, np.float32), (tn, np.float32),
                           (tm, np.int32), (ti, np.int32)))
-        return self._static
+        return self._static[dev]
 
     def flatten(self, materials: Materials | None = None,
                 build_stream: bool = False, stream_method: str = "median",
-                device=None, prev: SceneArrays | None = None) -> SceneArrays:
+                device=None, prev: SceneArrays | None = None,
+                build_bvh: bool = False,
+                bvh_leaf_size: int = 4) -> SceneArrays:
         """Bake instances into a world-space triangle soup on ``device``
-        (scene.py:142-209).  On CUDA the stream accel is always built;
-        with ``prev`` it is refitted from ``prev.stream`` instead, on
-        ``prev``'s device."""
+        (scene.py:142-209).  ``build_bvh`` builds the LBVH; on CUDA the
+        stream accel is built unless the LBVH is.  With ``prev`` each of
+        its structures is refitted instead, on ``prev``'s device."""
+        from royaltracer_dx_tpu_torch.ops.bvh import build_lbvh, refit_lbvh
         from royaltracer_dx_tpu_torch.ops.stream_trace import (
             build_stream_accel,
             refit_stream_accel,
@@ -147,10 +153,15 @@ class Scene:
         obj_tv, obj_tn, tm, ti = self._object_static(dev)
         xf = torch.as_tensor(np.stack(self.transforms), device=dev)
         tri_verts, tri_normals = _world_bake(obj_tv, obj_tn, ti, xf)
+        bvh = None
+        if prev is not None and prev.bvh is not None:
+            bvh = refit_lbvh(prev.bvh, tri_verts)
+        elif build_bvh:
+            bvh = build_lbvh(tri_verts, leaf_size=bvh_leaf_size)
         stream = None
         if prev is not None and prev.stream is not None:
             stream = refit_stream_accel(prev.stream, tri_verts)
-        elif build_stream or dev.type == "cuda":
+        elif build_stream or (dev.type == "cuda" and bvh is None):
             stream = build_stream_accel(tri_verts, method=stream_method)
         return SceneArrays(
             tri_verts=tri_verts,
@@ -162,6 +173,7 @@ class Scene:
             object_to_world=xf,
             prev_object_to_world=torch.as_tensor(
                 np.stack(self.prev_transforms), device=dev),
+            bvh=bvh,
             stream=stream,
         ).with_tri_table()
 

@@ -78,9 +78,9 @@ class LightTriangles:
 
 @dataclasses.dataclass
 class SceneArrays:
-    """Device-side flattened scene (types.py:108-148).  ``stream`` holds
-    the StreamAccel; the LBVH / cluster structures of the JAX package are
-    not ported yet."""
+    """Device-side flattened scene (types.py:108-148).  ``bvh`` holds the
+    LBVH (traversal "bvh"), ``stream`` the StreamAccel; the cluster
+    structure of the JAX package is not ported yet."""
 
     tri_verts: torch.Tensor      # [T, 3, 3] world space
     tri_normals: torch.Tensor    # [T, 3, 3] world space (0 = flat)
@@ -90,6 +90,7 @@ class SceneArrays:
     lights: LightTriangles
     object_to_world: torch.Tensor       # [I, 4, 4]
     prev_object_to_world: torch.Tensor  # [I, 4, 4]
+    bvh: object = None
     stream: object = None
     # verts(9) normals(9) mid obj as ONE [T, 20] row, ids as float VALUES
     # (types.py:127-145)

@@ -124,17 +124,6 @@ def test_half_record_id_guard(dtype, count):
 # ------------------------------ checkpoint -------------------------------
 
 
-@pytest.mark.parametrize("fmt,names", [("sharded_restir", "A'9")])
-def test_unported_checkpoint_formats_raise(tmp_path, fmt, names):
-    path = str(tmp_path / "x.npz")
-    np.savez(path, format=np.asarray(fmt), frame=np.asarray(1),
-             **{"fb.accum": np.zeros((64, 3), np.float32)})
-    r = tr.RestirRenderer(tproc.cornell_box(), Camera(eye=EYE, center=CENTER),
-                          RenderConfig(width=8, height=8), device="cpu")
-    with pytest.raises(ValueError, match=f"{fmt}.*{names}"):
-        tck.load_renderer_state(path, r)
-
-
 def test_checkpoint_resolution_mismatch_raises(tmp_path):
     path = str(tmp_path / "x.npz")
     cam = Camera(eye=EYE, center=CENTER)
@@ -360,9 +349,8 @@ def test_cli_animate_and_profile(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--devices", "2"], "A'9"),
-    (["--bvh"], "A'11"),
     (["--traversal", "cluster"], "A'11"),
+    (["--traversal", "cluster", "--renderer", "megakernel"], "A'11"),
 ])
 def test_cli_unported_options_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):

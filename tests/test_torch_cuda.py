@@ -303,3 +303,99 @@ def test_cuda_megakernel_kernels_match_plain(monkeypatch):
         nan_lanes += int(torch.isnan(args[0][:, 6]).sum())
     assert nan_lanes > 0
     assert np.isfinite(r.radiance()).all() and r.radiance().mean() > 0
+
+
+# ------------------------- LBVH kernels and bands -------------------------
+
+
+def _bvh_case(case, dev):
+    """(LBVH, rays [N, 8]) on ``dev``: the menger + soup triangles with
+    random rays (every third lane dead), or the Cornell box with rays from
+    inside it (every fifth lane dead)."""
+    from royaltracer_dx_tpu_torch.ops import bvh as tbvh
+    from royaltracer_dx_tpu_torch.ops import traverse as ttr
+    from royaltracer_dx_tpu_torch.scene.procedural import cornell_box
+
+    if case == "soup":
+        tris, o, d, t_max = _scene_and_rays(20000)
+        t_min = np.full(len(o), 1e-4, np.float32)
+    else:
+        s = cornell_box()
+        tris = s.flatten(s.build_materials(with_lut=False, device="cpu"),
+                         device="cpu").tri_verts.numpy()
+        rng = np.random.default_rng(8)
+        n = 16384
+        o = (rng.uniform(-0.9, 0.9, (n, 3)) * 0.4 + 0.5).astype(np.float32)
+        d = rng.normal(size=(n, 3)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        t_min = np.zeros(n, np.float32)
+        t_max = np.where(np.arange(n) % 5 == 0, -1.0, 0.6).astype(np.float32)
+    b = tbvh.build_lbvh(torch.as_tensor(tris, device=dev), leaf_size=4)
+    rays = ttr.pack_rays(torch.as_tensor(o, device=dev),
+                         torch.as_tensor(d, device=dev),
+                         torch.as_tensor(t_min, device=dev),
+                         torch.as_tensor(t_max, device=dev))
+    return b, rays
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["soup", "cornell"])
+@pytest.mark.parametrize("occlusion", [False, True])
+def test_cuda_bvh_kernel_matches_plain(case, occlusion):
+    """bvh_closest / bvh_any against their plain versions on the same
+    inputs: t, u, v, tri and the walk counts (node and triangle tests)
+    bit-equal for closest; the occlusion flags equal for any hit (its
+    kernel walks in another order, so its counts differ)."""
+    from royaltracer_dx_tpu_torch.ops import traverse as ttr
+
+    dev = _card()
+    b, rays = _bvh_case(case, dev)
+    name = "bvh_any" if occlusion else "bvh_closest"
+    before = ttr.LAUNCHES[name]
+    if occlusion:
+        k_occ, k_st = ttr.bvh_any(rays, b, stats=True)
+        torch.cuda.synchronize()
+        p_occ, _ = ttr._any_plain(rays, b)
+        assert torch.equal(k_occ, p_occ)
+        assert 0 < int(k_occ.sum()) < rays.shape[0]
+        assert not bool(k_occ[rays[:, 7] <= rays[:, 6]].any())
+    else:
+        k_tuv, k_tri, k_st = ttr.bvh_closest(rays, b, stats=True)
+        torch.cuda.synchronize()
+        p_tuv, p_tri, p_st = ttr._closest_plain(rays, b)
+        assert torch.equal(k_tri, p_tri)
+        assert torch.equal(k_tuv, p_tuv)
+        assert torch.equal(k_st[:, :2], p_st[:, :2])
+        assert int((k_tuv[:, 0] < 1e29).sum()) > 0
+    assert ttr.LAUNCHES[name] == before + 1
+    work = ttr.bvh_work(rays, b, k_st, not occlusion)
+    assert work["node_tests"] > 0 and work["bytes"] > 0
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_frame_matches_cpu():
+    """A 2-band sharded 96x54 menger frame on the card (both bands on
+    cuda:0) against the same 2-band frame on the CPU (the plain versions),
+    at small_frames_agree's tolerance in chip_smoke.py: >= 99% of pixels
+    within 1e-3 and per-channel means within 0.5%."""
+    from royaltracer_dx_tpu_torch.config import RenderConfig
+    from royaltracer_dx_tpu_torch.parallel.shard import ShardedRestirRenderer
+    from royaltracer_dx_tpu_torch.scene.procedural import menger_scene
+
+    dev = _card()
+    imgs = []
+    for devs in ([dev] * 2, ["cpu"] * 2):
+        scene, camera = menger_scene()
+        r = ShardedRestirRenderer(scene, camera,
+                                  RenderConfig(width=96, height=54),
+                                  devices=devs)
+        for _ in range(2):
+            r.render()
+        assert float(r.fb.count.min()) == 2.0
+        imgs.append(r.radiance())
+    a, b = imgs
+    assert np.isfinite(a).all() and a.mean() > 0.0
+    close = np.abs(a - b) <= 1e-3 * np.maximum(1.0, np.abs(b))
+    assert close.all(axis=-1).mean() >= 0.99
+    np.testing.assert_allclose(a.reshape(-1, 3).mean(0),
+                               b.reshape(-1, 3).mean(0), rtol=5e-3)

@@ -362,7 +362,7 @@ def test_camera_move_resets_accumulation():
     assert float(r.fb.count.min()) == 2.0
 
 
-@pytest.mark.parametrize("traversal", ["bvh", "cluster"])
+@pytest.mark.parametrize("traversal", ["cluster"])
 def test_unported_traversal_raises(traversal):
     with pytest.raises(NotImplementedError, match="A'11"):
         Renderer(tproc.cornell_box(), Camera(eye=EYE, center=CENTER),

@@ -115,7 +115,7 @@ def test_di_oracle_options():
     cam = Camera(eye=EYE, center=CENTER)
     with pytest.raises(NotImplementedError, match="A'11"):
         DiOracle(tproc.cornell_box(), cam,
-                 RenderConfig(width=8, height=8, traversal="bvh"),
+                 RenderConfig(width=8, height=8, traversal="cluster"),
                  device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is visible: the default device is valid")

@@ -292,8 +292,7 @@ def test_entry_points_default_to_the_card():
         scene.flatten()
 
 
-@pytest.mark.parametrize("kw", [dict(traversal="bvh"),
-                                dict(traversal="cluster")])
+@pytest.mark.parametrize("kw", [dict(traversal="cluster")])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         tr.RestirRenderer(cornell_box(), Camera(eye=EYE, center=CENTER),
@@ -301,7 +300,8 @@ def test_unported_options_raise(kw):
 
 
 @pytest.mark.parametrize("kw", [dict(gi_compaction="on"),
-                                dict(record_dtype="f16")])
+                                dict(record_dtype="f16"),
+                                dict(traversal="bvh")])
 def test_ported_options_render(kw):
     """Options that raised before their slice was ported now render: a
     finite, lit frame whose state matches the default options' shapes."""
@@ -331,6 +331,9 @@ def test_port_imports_no_jax():
         "import royaltracer_dx_tpu_torch.render.megakernel\n"
         "import royaltracer_dx_tpu_torch.render.renderer\n"
         "import royaltracer_dx_tpu_torch.render.di_oracle\n"
+        "import royaltracer_dx_tpu_torch.parallel.shard\n"
+        "import royaltracer_dx_tpu_torch.ops.bvh\n"
+        "import royaltracer_dx_tpu_torch.ops.traverse\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'royaltracer_dx_tpu'"
         " or m.startswith('royaltracer_dx_tpu.')]\n"
