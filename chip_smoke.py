@@ -83,11 +83,17 @@ Phases (any failure exits non-zero and prints no result line):
               each and read just after; every bvh_closest / bvh_any
               launch held against its plain version on a fixed sample of
               65,536 of its lanes (t, u, v, triangle ids and occlusion
-              bit-equal); then one more frame of each with every batch's
-              ms, bound and walk (node and triangle tests a lane), the
-              stream kernels timed on the megakernel's batches beside
-              them, and each kernel alone, its bound and its plain
-              version on the ReSTIR frame's largest batch; (c) the
+              bit-equal; for closest also the node, triangle and
+              root-transition stats of one more launch with stats on that
+              sample); then one more frame of each with every batch's
+              ms, bound, live share and walk (node and triangle tests a
+              lane, root-scan slab tests a live closest lane beside the
+              ones a scan needs, which the bound counts: the kernel's must
+              be at least as many), the stream
+              kernels timed on the megakernel's batches beside them, and
+              each kernel alone, its bound and its plain version on the
+              ReSTIR frame's largest batch, held against the plain
+              version on two differently strided samples; (c) the
               terrain's LBVH (999,698 triangles): build time, closest and
               any-hit Mrays/s beside phase 4's stream kernels; (d) dragon
               through cli.main --bvh --animate: one refit update() and
@@ -1265,7 +1271,7 @@ class BvhLaunches:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        self.real(name, rays, bvh, outs, stats)
+        counters = self.real(name, rays, bvh, outs, stats)
         end.record()
         n = rays.shape[0]
         idx = sample_lanes(n, rays.device)
@@ -1275,9 +1281,12 @@ class BvhLaunches:
             tmp = tuple(torch.empty_like(o) for o in outs)
             st_buf = torch.empty((n, 3), dtype=torch.int32,
                                  device=rays.device)
-            self.real(name, rays, bvh, tmp, st_buf)
+            counters = self.real(name, rays, bvh, tmp, st_buf)
             rec["work"] = self.tv.bvh_work(rays, bvh, st_buf,
                                            name == "bvh_closest")
+            rec["root_tests"] = int(counters[1])
+            check_root_tests(f"{self.label} {name}", rec["work"],
+                             rec["root_tests"])
             if n > self.largest.get(name, (0,))[0]:
                 self.largest[name] = (n, rays, bvh)
         if self.stream is not None:
@@ -1291,18 +1300,27 @@ class BvhLaunches:
                 *call, self.stream.blk_tris, self.stream.blk_boxes))
             rec["stream_kernel"] = sname
         self.recs.append(rec)
+        return counters
 
     def check(self, mismatches):
         """Every recorded launch's sample against the plain version:
         t/u/v and triangle ids (closest) or the occlusion flags (any)
-        bit-equal.  Fails on any difference."""
+        bit-equal; for closest also the walk's stats (node tests, triangle
+        tests, root transitions: what the bound reads), from one more
+        launch with stats on the sampled rays (a lane's walk depends on
+        that lane alone).  Call it after the path's launches are read:
+        those launches count.  Fails on any difference."""
         tv = self.tv
         for rec in self.recs:
             if rec["name"] == "bvh_closest":
-                p_tuv, p_tri, _ = tv._closest_plain(rec["rays"], rec["bvh"])
+                p_tuv, p_tri, p_st = tv._closest_plain(rec["rays"],
+                                                       rec["bvh"])
                 k_tuv, k_tri = rec["outs"]
-                bad = int(((k_tuv != p_tuv).any(dim=1)
-                           | (k_tri != p_tri)).sum())
+                s_tuv, s_tri, k_st = tv.bvh_closest(rec["rays"], rec["bvh"],
+                                                    stats=True)
+                bad = int(((k_tuv != p_tuv).any(dim=1) | (k_tri != p_tri)
+                           | (s_tuv != k_tuv).any(dim=1) | (s_tri != k_tri)
+                           | (k_st != p_st).any(dim=1)).sum())
                 err = float((k_tuv - p_tuv).abs().max()) if p_tuv.numel() \
                     else 0.0
             else:
@@ -1333,31 +1351,69 @@ class BvhLaunches:
                 if "work" in r:
                     w = r["work"]
                     line.update(bound_ms=st.bound_ms(w, *rates)["bound_ms"],
+                                dense_top_bound_ms=dense_top_bound(w, rates),
+                                top_tests_per_live_lane=w["top_tests"]
+                                / max(w["live_lanes"], 1),
                                 nodes_per_lane=w["nodes_per_lane"],
                                 tris_per_lane=w["tris_per_lane"],
-                                live_lanes=w["live_lanes"])
+                                live_lanes=w["live_lanes"],
+                                live_share=w["live_lanes"] / max(r["lanes"],
+                                                                 1),
+                                root_tests_per_live_lane=r["root_tests"]
+                                / max(w["live_lanes"], 1))
                 if "stream_ms" in r:
                     line["stream_ms"] = r["stream_ms"]
                 lines.append(line)
             out[name] = dict(launches=len(recs), batches=lines,
                              ms=sum(x["ms"] for x in lines),
                              bound_ms=sum(x.get("bound_ms", 0.0)
-                                          for x in lines))
+                                          for x in lines),
+                             dense_top_bound_ms=sum(
+                                 x.get("dense_top_bound_ms", 0.0)
+                                 for x in lines))
         return out
+
+
+def dense_top_bound(work, rates):
+    """The bound with S root slab tests a live closest lane in place of
+    one scan's (``dense_top_fp32_ops``): the yardstick of the first LBVH
+    kernels' times, to compare with them."""
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+
+    return st.bound_ms(dict(work, fp32_ops=work["dense_top_fp32_ops"]),
+                       *rates)["bound_ms"]
+
+
+def check_root_tests(label, work, scanned):
+    """The closest kernel's root scans (counters[1]) make at least the
+    slab tests the bound counts for them: the first scan of a lane is the
+    needed DFS (all 2S - 1 top nodes above t_max 1e30), rescans come on
+    top.  Any hit scans nothing."""
+    if scanned < work["top_tests"]:
+        fail(f"{label}: the root scans made {scanned} slab tests, fewer "
+             f"than the {work['top_tests']} the bound counts")
 
 
 def print_bvh_batches(label, per_kernel):
     for name, pk in per_kernel.items():
+        dense = (f"; {pk['dense_top_bound_ms']:.3f} ms with S root tests a "
+                 "live lane" if name == "bvh_closest" else "")
         print(f"  {label} {name}: {pk['launches']} launches, "
-              f"{pk['ms']:.3f} ms in all (bound {pk['bound_ms']:.3f} ms)",
-              flush=True)
+              f"{pk['ms']:.3f} ms in all (bound {pk['bound_ms']:.3f} ms"
+              f"{dense})", flush=True)
         for b in pk["batches"]:
             extra = ""
             if "bound_ms" in b:
                 extra = (f", bound {b['bound_ms']:.3f} ms, "
                          f"{b['nodes_per_lane']:.1f} node and "
                          f"{b['tris_per_lane']:.1f} triangle tests a lane "
-                         f"({b['live_lanes']} live)")
+                         f"({b['live_lanes']} live, a share of "
+                         f"{b['live_share']:.3f})")
+                if name == "bvh_closest":
+                    extra += (f", {b['root_tests_per_live_lane']:.1f} "
+                              "root-scan slab tests a live lane (needed "
+                              f"{b['top_tests_per_live_lane']:.1f}; bound "
+                              f"with S: {b['dense_top_bound_ms']:.3f} ms)")
             if "stream_ms" in b:
                 extra += f"; the stream kernel on the same rays " \
                          f"{b['stream_ms']:.3f} ms"
@@ -1368,24 +1424,61 @@ def print_bvh_batches(label, per_kernel):
 def bvh_kernel_entry(name, rec, rates, mismatches):
     """The kernels-line numbers of an LBVH kernel on the largest batch of
     a run: its time alone (3 launches), the bound from that batch's walk
-    counts, and the plain version's time on the batch's fixed sample."""
+    counts, the live share, for closest the root scans' slab tests a live
+    lane, and the plain version's time on the batch's fixed sample.  The
+    kernel's output with stats is held against the plain version on two
+    differently strided samples of the batch (t, u, v, triangle ids and
+    the three stats bit-equal; occlusion equal)."""
     from royaltracer_dx_tpu_torch.ops import stream_trace as st
     from royaltracer_dx_tpu_torch.ops import traverse as tv
 
     n, rays, bvh = rec
-    kern = tv.bvh_closest if name == "bvh_closest" else tv.bvh_any
+    closest = name == "bvh_closest"
+    kern = tv.bvh_closest if closest else tv.bvh_any
     cuda_ms(lambda: kern(rays, bvh))
     ms, _ = cuda_ms(lambda: kern(rays, bvh), reps=3)
-    st_buf = kern(rays, bvh, stats=True)[-1]
-    work = tv.bvh_work(rays, bvh, st_buf, name == "bvh_closest")
+    outs = ((torch.empty((n, 3), device=rays.device),
+             torch.empty((n,), dtype=torch.int32, device=rays.device))
+            if closest else
+            (torch.empty((n,), dtype=torch.int32, device=rays.device),))
+    st_buf = torch.empty((n, 3), dtype=torch.int32, device=rays.device)
+    counters = tv._launch(name, rays, bvh, outs, st_buf)
+    work = tv.bvh_work(rays, bvh, st_buf, closest)
+    check_root_tests(f"{name} on its largest batch", work, int(counters[1]))
     bound = st.bound_ms(work, *rates)
-    idx = sample_lanes(n, rays.device)
-    plain = tv._closest_plain if name == "bvh_closest" else tv._any_plain
-    sample = rays[idx]
+    plain = tv._closest_plain if closest else tv._any_plain
+    k = min(n, SAMPLE_LANES)
+    samples = (sample_lanes(n, rays.device),
+               torch.arange(k, dtype=torch.int64, device=rays.device)
+               * 7919 % n)
+    for j, idx in enumerate(samples):
+        p_out = plain(rays[idx], bvh)
+        if closest:
+            bad = int(((outs[0][idx] != p_out[0]).any(dim=1)
+                       | (outs[1][idx] != p_out[1])
+                       | (st_buf[idx] != p_out[2]).any(dim=1)).sum())
+        else:
+            bad = int((outs[0][idx] != p_out[0]).sum())
+        mismatches.setdefault(name, []).append(dict(
+            case=f"largest batch, sample {j}", lanes=int(idx.shape[0]),
+            bad=bad, max_abs_err=float(bad) if not closest else float(
+                (outs[0][idx] - p_out[0]).abs().max())))
+        if bad:
+            fail(f"{name} on its largest batch differs from its plain "
+                 f"version on {bad} of sample {j}'s {idx.shape[0]} lanes")
+    sample = rays[samples[0]]
     plain_ms, _ = cuda_ms(lambda: plain(sample, bvh))
     err = max([c["max_abs_err"] for c in mismatches.get(name, [])] + [0.0])
+    live = work["live_lanes"]
     return dict(lanes=n, ms=ms, plain_ms=plain_ms,
                 plain_lanes=int(sample.shape[0]), max_abs_err=err,
+                live_share=live / max(n, 1),
+                root_tests_per_live_lane=(int(counters[1]) / max(live, 1)
+                                          if closest else None),
+                top_tests_per_live_lane=(work["top_tests"] / max(live, 1)
+                                         if closest else None),
+                dense_top_bound_ms=(dense_top_bound(work, rates)
+                                    if closest else None),
                 work=work, **bound)
 
 
@@ -1571,17 +1664,28 @@ def phase_lbvh(out_dir, rates, mismatches, terrain_stream):
     entries = {}
     for name, (replaces, fn) in BVH_KERNELS.items():
         e = bvh_kernel_entry(name, largest[name], rates, mismatches)
+        res = tv.BUILD_INFO["resources"][name]
+        roots = ("" if e["root_tests_per_live_lane"] is None else
+                 f", {e['root_tests_per_live_lane']:.1f} root-scan slab "
+                 f"tests a live lane (needed "
+                 f"{e['top_tests_per_live_lane']:.1f}; the bound with S "
+                 f"root tests a live lane {e['dense_top_bound_ms']:.3f} "
+                 "ms)")
         print(f"  {name} on sponza's largest ReSTIR batch ({e['lanes']} "
-              f"lanes): kernel {e['ms']:.3f} ms, bound {e['bound_ms']:.3f} "
-              f"ms ({e['bound_by']}), plain version {e['plain_ms']:.3f} ms "
-              f"on its {e['plain_lanes']}-lane sample; "
+              f"lanes, a live share of {e['live_share']:.3f}): kernel "
+              f"{e['ms']:.3f} ms, bound {e['bound_ms']:.3f} ms "
+              f"({e['bound_by']}), plain version {e['plain_ms']:.3f} ms on "
+              f"its {e['plain_lanes']}-lane sample; "
               f"{e['work']['nodes_per_lane']:.1f} node and "
-              f"{e['work']['tris_per_lane']:.1f} triangle tests a lane",
-              flush=True)
+              f"{e['work']['tris_per_lane']:.1f} triangle tests a lane"
+              f"{roots}; {res['ctas_per_sm']} CTAs of {res['threads']} "
+              f"threads an SM, {res['registers']} registers; two strided "
+              "samples equal to the plain version", flush=True)
         entries[name] = dict(
             e, name=name, route="cuda", source=BVH_SOURCE, replaces=replaces,
             replaces_fn=fn, launches=restir_launches[name], library_ms=None,
-            resources=tv.BUILD_INFO["resources"][name])
+            resources={k: v for k, v in tv.BUILD_INFO["resources"].items()
+                       if k.startswith(name)})
     del largest
     torch.cuda.empty_cache()
 
@@ -1700,7 +1804,8 @@ def main() -> None:
               f"{info['seconds']:.1f} s ({' '.join(info['flags'])})",
               flush=True)
         for line in info["log"].splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if ("registers" in line or "Compiling entry" in line
+                    or "spill" in line):
                 print(f"  ptxas: {line.strip()}", flush=True)
     for name, res in st.BUILD_INFO["resources"].items():
         print(f"  {name}: {res['ctas_per_sm']} CTAs of 128 threads resident "
@@ -1711,7 +1816,8 @@ def main() -> None:
     for name, res in tv.BUILD_INFO["resources"].items():
         print(f"  {name}: {res['ctas_per_sm']} blocks of {res['threads']} "
               f"threads resident per SM, {res['registers']} registers per "
-              "thread", flush=True)
+              f"thread, {res['shared_bytes']} B of dynamic shared memory "
+              "per block", flush=True)
 
     # ---- the scene of the main path
     scene, camera = menger_scene()

@@ -28,6 +28,7 @@ from royaltracer_dx_tpu_torch.scene.types import (
     LightTriangles,
     Materials,
     SceneArrays,
+    world_bounds,
 )
 
 _INT_FIELDS = ("tri_material", "tri_instance", "instance", "perm")
@@ -63,8 +64,9 @@ def scene_arrays_from_numpy(d: dict, device=None) -> SceneArrays:
     stream = None
     if "stream.blk_tris" in d:
         stream = stream_accel_from_numpy(d, dev, prefix="stream.")
+    tri_verts = _tensor(d, "tri_verts", dev)
     return SceneArrays(
-        tri_verts=_tensor(d, "tri_verts", dev),
+        tri_verts=tri_verts,
         tri_normals=_tensor(d, "tri_normals", dev),
         tri_material=_tensor(d, "tri_material", dev),
         tri_instance=_tensor(d, "tri_instance", dev),
@@ -72,5 +74,6 @@ def scene_arrays_from_numpy(d: dict, device=None) -> SceneArrays:
         lights=LightTriangles(**_fields(LightTriangles, d, "lights.", dev)),
         object_to_world=_tensor(d, "object_to_world", dev),
         prev_object_to_world=_tensor(d, "prev_object_to_world", dev),
+        bounds=world_bounds(tri_verts),
         stream=stream,
     ).with_tri_table()

@@ -659,7 +659,9 @@ def _check(rows, wl, went, cnt, blk_tris, blk_boxes):
 
 def _launch(name, rows, wl, went, cnt, blk_tris, blk_boxes, lib=None):
     """Launch kernel ``name`` of the package's library (or of ``lib``, a
-    build of the same C interface) on PyTorch's current stream."""
+    build of the same C interface) on PyTorch's current stream of the
+    inputs' device, made the current device for the launch (a launch on
+    another card's stream computes nothing valid)."""
     lib = lib or build_kernels()
     n_pad = rows.shape[0]
     chunks = n_pad // RAYS_PER_CHUNK
@@ -667,11 +669,12 @@ def _launch(name, rows, wl, went, cnt, blk_tris, blk_boxes, lib=None):
     tuv = torch.empty((n_pad, 3), dtype=torch.float32, device=dev)
     slot = torch.empty((n_pad,), dtype=torch.int32, device=dev)
     stats = torch.empty((chunks, 3), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = getattr(lib, name)(
-        rows.data_ptr(), wl.data_ptr(), went.data_ptr(), cnt.data_ptr(),
-        blk_tris.data_ptr(), blk_boxes.data_ptr(), tuv.data_ptr(),
-        slot.data_ptr(), stats.data_ptr(), chunks, wl.shape[1], stream)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, name)(
+            rows.data_ptr(), wl.data_ptr(), went.data_ptr(), cnt.data_ptr(),
+            blk_tris.data_ptr(), blk_boxes.data_ptr(), tuv.data_ptr(),
+            slot.data_ptr(), stats.data_ptr(), chunks, wl.shape[1], stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
     LAUNCHES[name] += 1

@@ -26,7 +26,9 @@ slot.  ``bvh_closest`` / ``bvh_any`` are the
 wrappers of the hand-written CUDA kernels in ``csrc/bvh_traverse.cu``:
 for CUDA tensors they launch the kernel (or raise), for CPU tensors they
 run the plain version.  A lane's answer depends on that lane alone, so
-the kernels walk one ray per thread.  ``bvh_work`` turns a call's
+the kernels walk one ray per thread, on persistent warps that take rays
+from a counter in the wrapper's zeroed scratch and walk only live lanes
+(the kernel's header note has the design).  ``bvh_work`` turns a call's
 per-lane walk counts into the bytes and FP32 operations it needs, for
 ``stream_trace.bound_ms``.
 
@@ -318,6 +320,42 @@ SLAB_OPS = 24
 MT_OPS = 52
 
 
+def top_scan_tests(rays: torch.Tensor, bvh: LBVH,
+                   chunk: int = 1 << 17) -> torch.Tensor:
+    """Per lane [N] int64: the top-level slab tests that ordering the S
+    subtree roots needs, one scan of them.  A live lane (t_max > t_min)
+    with t_max <= 1e30 needs the fewer of S (a test of every root) and a
+    left-first DFS of the top tree (heap ids [1, 2S)) that tests a box
+    only when every box above it is hit within [t_min, t_max]: a root
+    under a missed box cannot be entered before t_max.  Above 1e30 missed
+    roots are taken too (keyed 1e30), so all S roots are tested.  Dead
+    lanes need none.  The closest kernel's first scan of a lane makes the
+    DFS's tests (all 2S - 1 above 1e30), so at least these; rescans come
+    on top."""
+    o, d, t_min, t_max = _rays(rays)
+    s, _ = _top_level(bvh.num_leaves)
+    live = t_max > t_min
+    out = torch.where(live, s, 0).to(torch.int64)
+    lanes = torch.nonzero(live & (t_max <= INF))[:, 0]
+    inv = _safe_inv(d)
+    for c in range(0, lanes.numel(), chunk):
+        ln = lanes[c:c + chunk]
+        reach = torch.ones((ln.numel(), 1), dtype=torch.bool,
+                           device=rays.device)
+        count = torch.ones(ln.numel(), dtype=torch.int64, device=rays.device)
+        k = 1
+        while k < s:                 # the internal boxes of level log2 k
+            box = bvh.nodes[k:2 * k]
+            hit, _ = _slab(box[None, :, :3], box[None, :, 3:],
+                           o[ln, None, :], inv[ln, None, :],
+                           t_min[ln, None], t_max[ln, None])
+            reach = (reach & hit).repeat_interleave(2, dim=1)
+            count += reach.sum(dim=1)
+            k *= 2
+        out[ln] = torch.clamp_max(count, s)
+    return out
+
+
 def bvh_work(rays: torch.Tensor, bvh: LBVH, stats: torch.Tensor,
              closest: bool) -> dict:
     """Bytes and FP32 operations one bvh_closest / bvh_any call needs,
@@ -326,9 +364,11 @@ def bvh_work(rays: torch.Tensor, bvh: LBVH, stats: torch.Tensor,
     Bytes: 32 B of ray read and 16 B (closest: t, u, v, tri) or 4 B (any:
     the flag) written per lane, plus the tree read once (node rows,
     triangles and, for closest, perm).  Operations: the walk's node slab
-    tests and triangle tests from the stats and, for closest, the dense
-    top's S slab tests of every live lane (t_max > t_min); lanes that
-    cannot hit need nothing."""
+    tests and triangle tests from the stats and, for closest, the slab
+    tests of one root scan (``top_scan_tests``); lanes that cannot hit
+    need nothing.  ``dense_top_fp32_ops`` counts S root tests a live
+    closest lane instead, the yardstick of the first LBVH kernels'
+    measurements, kept to compare with them."""
     n = rays.shape[0]
     p, ls = bvh.num_leaves, bvh.leaf_size
     s, _ = _top_level(p)
@@ -338,11 +378,15 @@ def bvh_work(rays: torch.Tensor, bvh: LBVH, stats: torch.Tensor,
     node_tests = int(stats[:, 0].sum())
     tri_tests = int(stats[:, 1].sum())
     live = int((rays[:, 7] > rays[:, 6]).sum())
-    top = live * s if closest else 0
+    top = int(top_scan_tests(rays, bvh).sum()) if closest else 0
+    dense = live * s if closest else 0
     return dict(bytes=n * 32 + n * (16 if closest else 4) + tree,
                 fp32_ops=(top + node_tests) * SLAB_OPS + tri_tests * MT_OPS,
-                lanes=n, live_lanes=live, node_tests=node_tests,
-                tri_tests=tri_tests, roots=int(stats[:, 2].sum()),
+                dense_top_fp32_ops=((dense + node_tests) * SLAB_OPS
+                                    + tri_tests * MT_OPS),
+                lanes=n, live_lanes=live, top_tests=top,
+                node_tests=node_tests, tri_tests=tri_tests,
+                roots=int(stats[:, 2].sum()),
                 nodes_per_lane=node_tests / max(n, 1),
                 tris_per_lane=tri_tests / max(n, 1))
 
@@ -355,10 +399,11 @@ _LIB = None
 BUILD_INFO: dict = {}
 # the C interface of csrc/bvh_traverse.cu: ctypes argument types by name
 _SIGNATURES = {
-    "bvh_closest": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+    "bvh_closest": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
-    "bvh_any": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-    "bvh_resources": [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+    "bvh_any": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "bvh_resources": [ctypes.c_int, ctypes.c_int,
+                      ctypes.POINTER(ctypes.c_int)],
 }
 
 
@@ -373,13 +418,15 @@ def build_kernels():
         lib, info = build_library(_SRC, signatures=_SIGNATURES)
         res = {}
         for name, occ in (("bvh_closest", 0), ("bvh_any", 1)):
-            vals = (ctypes.c_int * 3)()
-            err = lib.bvh_resources(occ, vals)
-            if err != 0:
-                raise RuntimeError(f"{name}: CUDA error {err} querying "
-                                   "resources")
-            res[name] = dict(ctas_per_sm=vals[0], registers=vals[1],
-                             threads=vals[2])
+            for stats in (0, 1):
+                vals = (ctypes.c_int * 4)()
+                err = lib.bvh_resources(occ, stats, vals)
+                if err != 0:
+                    raise RuntimeError(f"{name}: CUDA error {err} querying "
+                                       "resources")
+                res[name + ("_stats" if stats else "")] = dict(
+                    ctas_per_sm=vals[0], registers=vals[1], threads=vals[2],
+                    shared_bytes=vals[3])
         BUILD_INFO.update(info, resources=res)
         _LIB = lib
     return _LIB
@@ -408,20 +455,34 @@ def _check(rays: torch.Tensor, bvh: LBVH):
 
 
 def _launch(name, rays, bvh, outs, stats):
+    """Launch kernel ``name`` with its scratch: two zeroed int64 counters,
+    the next ray the persistent warps take and, with ``stats``, the slab
+    tests of the closest kernel's root scans.  The inputs' device is the
+    current device for the launch (its stream, its SM count).  Returns
+    the scratch."""
     lib = build_kernels()
     n = rays.shape[0]
     p, ls = bvh.num_leaves, bvh.leaf_size
     s, _ = _top_level(p)
-    stream = torch.cuda.current_stream(rays.device).cuda_stream
-    err = getattr(lib, name)(
-        rays.data_ptr(), bvh.nodes.data_ptr(), bvh.sorted_tris.data_ptr(),
-        bvh.perm.data_ptr(), outs[0].data_ptr(),
-        outs[1].data_ptr() if len(outs) > 1 else None,
-        stats.data_ptr() if stats is not None else None,
-        n, p, ls, s, max_iters_of(bvh), stream)
+    counters = torch.zeros(2, dtype=torch.int64, device=rays.device)
+    with torch.cuda.device(rays.device):
+        stream = torch.cuda.current_stream(rays.device).cuda_stream
+        st = stats.data_ptr() if stats is not None else None
+        if name == "bvh_closest":
+            err = lib.bvh_closest(
+                rays.data_ptr(), bvh.nodes.data_ptr(),
+                bvh.sorted_tris.data_ptr(), bvh.perm.data_ptr(),
+                outs[0].data_ptr(), outs[1].data_ptr(), st,
+                counters.data_ptr(), n, p, ls, s, max_iters_of(bvh), stream)
+        else:
+            err = lib.bvh_any(
+                rays.data_ptr(), bvh.nodes.data_ptr(),
+                bvh.sorted_tris.data_ptr(), outs[0].data_ptr(), st,
+                counters.data_ptr(), n, p, ls, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
     LAUNCHES[name] += 1
+    return counters
 
 
 def bvh_closest(rays: torch.Tensor, bvh: LBVH, stats: bool = False):

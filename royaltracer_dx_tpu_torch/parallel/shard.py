@@ -316,6 +316,7 @@ class ShardedRestirRenderer:
         sa = scene.flatten(mats, build_stream=_wants_stream(scene, cfg),
                            build_bvh=cfg.accel == "bvh",
                            bvh_leaf_size=cfg.bvh_leaf_size, device=first)
+        rr.check_world(sa, cfg)
         self._materials = {first: mats}
         self._scenes = {first: sa}
         for d in dict.fromkeys(self.devices):
@@ -390,6 +391,7 @@ class ShardedRestirRenderer:
             self.camera = camera
         for d, sa in self._scenes.items():
             self._scenes[d] = self.scene.flatten(self._materials[d], prev=sa)
+        rr.check_world(self.scene_arrays, self.cfg)
 
     def render(self) -> None:
         """One progressive frame over all bands (shard.py:351-429)."""

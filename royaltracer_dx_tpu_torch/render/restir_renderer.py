@@ -24,6 +24,10 @@ launches the stream kernels of csrc/stream_trace.cu.
 Pass 3 reads its accept rows from float16 tables exactly where the JAX
 package does (:651-653, :756-757) and gathers the chosen candidates'
 payload again from the packed shards; otherwise the accept masks differ.
+Where a world coordinate passes float16's largest value (65504) those
+tables would hold inf and reject every spatial tap, as the JAX package's
+do; there they are float32 (``_accept_dtype``), and f16 records, whose
+positions would overflow too, raise (``check_world``).
 The shards are stored in ``cfg.record_dtype`` (f32, f16 or bf16): values
 round through torch.float16 / torch.bfloat16 (round to nearest even, as
 XLA's converts do) at the same places as in the JAX package, and the
@@ -85,6 +89,9 @@ _I = torch.int32
 # payload record dtypes (:975-977)
 _REC_DTYPES = {"f32": torch.float32, "f16": torch.float16,
                "bf16": torch.bfloat16}
+# float16's largest finite value: the bound on world coordinates of the
+# f16 accept tables and records
+F16_MAX = 65504.0
 
 
 def _pixel_grid(cfg: RenderConfig, device):
@@ -497,6 +504,13 @@ def _spatial_try_at(xs, ys, cfg: RenderConfig, seed, t: int, row0: int = 0,
     return ly * cfg.width + nx, is_center
 
 
+def _accept_dtype(scene) -> torch.dtype:
+    """Pass 3's accept tables: float16 as in the JAX package while every
+    world coordinate fits it (then every accept mask equals the JAX
+    package's), else float32."""
+    return torch.float16 if scene.world_abs_max <= F16_MAX else torch.float32
+
+
 def _claim_first_k(accept_t, pidx_t, cnt, sel_pidx, ok, k: int):
     """Stream one try into the first-k candidate slots (:680-689).  Lanes
     with no accepted try keep try 0's pick; ``ok`` masks it everywhere."""
@@ -510,14 +524,16 @@ def _claim_first_k(accept_t, pidx_t, cnt, sel_pidx, ok, k: int):
 
 
 def _gi_candidates(cur_gi, sdata, mat, packed_gi, cam_pos, xs, ys, cfg,
-                   seed, row0: int = 0, band_h: int | None = None):
+                   seed, acc_dtype, row0: int = 0,
+                   band_h: int | None = None):
     """GI candidate picks (:628-709, pass3:144-189), one flat [N] pipeline
-    per try.  The accept chain reads S0 and S1 from ONE f16 table; the k
-    chosen candidates re-gather all three f32 shards.  Returns (gi_ok,
-    nb_gi, nb_sd_g, seed)."""
+    per try.  The accept chain reads S0 and S1 from ONE f16 table (f32
+    beyond f16's range, ``_accept_dtype``); the k chosen candidates
+    re-gather all three f32 shards.  Returns (gi_ok, nb_gi, nb_sd_g,
+    seed)."""
     k = cfg.spatial_candidate_count
     rough_ok = mat["rough"] > 0.3
-    s01 = torch.cat([packed_gi[0], packed_gi[1]], -1).to(torch.float16)
+    s01 = torch.cat([packed_gi[0], packed_gi[1]], -1).to(acc_dtype)
     cnt = torch.zeros(xs.shape, dtype=_I, device=xs.device)
     sel_pidx = None
     gi_ok = [torch.zeros(xs.shape, dtype=torch.bool, device=xs.device)
@@ -596,9 +612,11 @@ def pass3_spatial(scene, cam: dict, frame: int, cur_di: dict, cur_gi: dict,
         packed_di, packed_gi = packed_di_ext, packed_gi_ext
 
     # ---- DI candidates (pass3:107-142): each try gathers only the f16
-    # ACCEPT row (x1/n1/mid/flags); the k chosen candidates' payload,
-    # origins included, re-gathers from the f32 shards
-    acc_di = packed_di[0].to(torch.float16)
+    # ACCEPT row (x1/n1/mid/flags; f32 beyond f16's range); the k chosen
+    # candidates' payload, origins included, re-gathers from the f32
+    # shards
+    acc_dtype = _accept_dtype(scene)
+    acc_di = packed_di[0].to(acc_dtype)
     cnt = torch.zeros(xs.shape, dtype=_I, device=xs.device)
     sel_pidx = None
     di_ok = [torch.zeros(xs.shape, dtype=torch.bool, device=xs.device)
@@ -650,8 +668,8 @@ def pass3_spatial(scene, cam: dict, frame: int, cur_di: dict, cur_gi: dict,
     # every visibility-bearing p-hat of this pass (k DI p_hat_from, k GI
     # p_hat_from, k GI shift targets) shares ONE 3k*N shadow batch
     gi_ok, nb_gi, nb_sd_g, seed = _gi_candidates(
-        cur_gi, sdata, mat, packed_gi, cam_pos, xs, ys, cfg, seed, row0,
-        band_h)
+        cur_gi, sdata, mat, packed_gi, cam_pos, xs, ys, cfg, seed, acc_dtype,
+        row0, band_h)
     vis_all = [] if k == 0 else restir.visibility_batch_p(
         scene,
         [(nb_sd[v]["x1"], nb_sd[v]["n1"], cur_di["x2"], shading & di_ok[v])
@@ -928,6 +946,22 @@ def check_config(scene: Scene, cfg: RenderConfig) -> None:
             f"counts < {lim}")
 
 
+def check_world(arrays, cfg: RenderConfig) -> None:
+    """Raise when f16 records meet a world coordinate beyond float16's
+    range: their stored positions would be inf.  Run after every bake
+    (construction and ``update()``), where the world bounds are read."""
+    if cfg.record_dtype != "f16" or arrays.world_abs_max <= F16_MAX:
+        return
+    lo, hi = arrays.bounds
+    axis, value = max(((a, v) for a in range(3) for v in (lo[a], hi[a])),
+                      key=lambda av: abs(av[1]))
+    raise ValueError(
+        f"record_dtype='f16' stores world positions as float16, whose "
+        f"largest finite value is {F16_MAX:g}; this scene has a world "
+        f"coordinate {'xyz'[axis]} = {value:g}: use record_dtype='f32' or "
+        "'bf16'")
+
+
 def _wants_stream(scene: Scene, cfg: RenderConfig) -> bool:
     """Build the stream accel for traversal="stream" or a big-scene auto
     (:1290-1296); on the card flatten builds it regardless."""
@@ -955,6 +989,7 @@ class RestirRenderer:
             self.materials, build_stream=_wants_stream(scene, cfg),
             build_bvh=cfg.accel == "bvh", bvh_leaf_size=cfg.bvh_leaf_size,
             device=self.device)
+        check_world(self.scene_arrays, cfg)
         n = cfg.num_pixels
         dev = self.device
         self.last_di = zeros_reservoir(n, _DI_KEYS, dev)
@@ -991,6 +1026,7 @@ class RestirRenderer:
             self.camera = camera
         self.scene_arrays = self.scene.flatten(self.materials,
                                                prev=self.scene_arrays)
+        check_world(self.scene_arrays, self.cfg)
 
     def _set_state(self, st: dict) -> None:
         self.last_di = st["last_di"]

@@ -24,6 +24,7 @@ from royaltracer_dx_tpu_torch.scene.types import (
     Materials,
     MeshData,
     SceneArrays,
+    world_bounds,
 )
 
 DEFAULT_MATERIAL = obj_loader.DEFAULT_MATERIAL
@@ -173,6 +174,7 @@ class Scene:
             object_to_world=xf,
             prev_object_to_world=torch.as_tensor(
                 np.stack(self.prev_transforms), device=dev),
+            bounds=world_bounds(tri_verts),
             bvh=bvh,
             stream=stream,
         ).with_tri_table()

@@ -90,6 +90,10 @@ class SceneArrays:
     lights: LightTriangles
     object_to_world: torch.Tensor       # [I, 4, 4]
     prev_object_to_world: torch.Tensor  # [I, 4, 4]
+    # (min xyz, max xyz) of tri_verts as host floats (world_bounds), read
+    # once where the world is baked: pass 3 picks its accept tables' dtype
+    # from it without a device sync in the frame
+    bounds: tuple
     bvh: object = None
     stream: object = None
     # verts(9) normals(9) mid obj as ONE [T, 20] row, ids as float VALUES
@@ -110,5 +114,20 @@ class SceneArrays:
         return self.tri_verts.shape[0]
 
     @property
+    def world_abs_max(self) -> float:
+        """The largest |coordinate| of the world triangles."""
+        return max(max(abs(v) for v in b) for b in self.bounds)
+
+    @property
     def device(self) -> torch.device:
         return self.tri_verts.device
+
+
+def world_bounds(tri_verts: torch.Tensor) -> tuple:
+    """(min xyz, max xyz) of [T, 3, 3] triangles as host floats: one
+    device read."""
+    if tri_verts.shape[0] == 0:
+        return ((0.0,) * 3, (0.0,) * 3)
+    lo_hi = torch.stack([tri_verts.amin(dim=(0, 1)),
+                         tri_verts.amax(dim=(0, 1))]).cpu().tolist()
+    return tuple(lo_hi[0]), tuple(lo_hi[1])

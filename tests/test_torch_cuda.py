@@ -20,6 +20,8 @@ import pytest
 import torch
 
 from royaltracer_dx_tpu_torch.ops import stream_trace as tst
+from royaltracer_dx_tpu_torch.ops import traverse as ttr
+from royaltracer_dx_tpu_torch.scene import procedural as tproc
 from royaltracer_dx_tpu_torch.scene.procedural import menger_sponge
 
 
@@ -313,7 +315,6 @@ def _bvh_case(case, dev):
     random rays (every third lane dead), or the Cornell box with rays from
     inside it (every fifth lane dead)."""
     from royaltracer_dx_tpu_torch.ops import bvh as tbvh
-    from royaltracer_dx_tpu_torch.ops import traverse as ttr
     from royaltracer_dx_tpu_torch.scene.procedural import cornell_box
 
     if case == "soup":
@@ -338,18 +339,122 @@ def _bvh_case(case, dev):
     return b, rays
 
 
+def _aimed(tris, rng, n, jitter=1e-3):
+    """Rays from a shell around the triangles at random triangles'
+    centroids (most hit)."""
+    c = tris.mean(axis=(0, 1))
+    ext = float(np.abs(tris - c).max()) * 1.5
+    o = c + rng.uniform(-ext, ext, (n, 3))
+    aim = tris[rng.integers(0, len(tris), n)].mean(axis=1)
+    d = aim + rng.normal(scale=jitter, size=(n, 3)) - o
+    d = d / np.linalg.norm(d, axis=1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+def _quads():
+    """Axis-aligned unit quads (two triangles sharing a diagonal) on a
+    4x4 grid in 8 planes z = const, and the same grid turned to the x and
+    y planes."""
+    tris = []
+    for z in np.linspace(-1.0, 1.0, 8):
+        for i in range(4):
+            for j in range(4):
+                x0, y0 = -1.0 + 0.5 * i, -1.0 + 0.5 * j
+                a, b = (x0, y0, z), (x0 + 0.5, y0, z)
+                c, d = (x0 + 0.5, y0 + 0.5, z), (x0, y0 + 0.5, z)
+                tris += [(a, b, c), (a, c, d)]
+    t = np.asarray(tris, np.float32)
+    return np.concatenate([t, t[..., [2, 0, 1]], t[..., [1, 2, 0]]])
+
+
+def bvh_order_case(name):
+    """(triangles, rays [N, 8] on the CPU, leaf size) of a case that
+    stresses the closest walk's order: "soup64" / "soup1024" (random
+    soups of 64 and 1,024 leaves: S < 256 and S = 256), "ties" (each
+    triangle five times, so two leaves hold exact ties in t), "axis"
+    (axis-aligned rays on axis-aligned quads, through their corners,
+    edges and diagonals), "edges" (rays through a mesh's shared edges and
+    vertices).  Every case mixes in dead lanes, NaN bounds, t_max = inf,
+    t_max = 1e30 and t_max = t_min; soup64 also NaN t_max lanes (the
+    plain version then runs its whole iteration cap)."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name in ("soup64", "soup1024"):
+        n_tris = 250 if name == "soup64" else 4000
+        v, idx = tproc.random_tris(n_tris, seed=7, size=0.05)
+        tris = np.asarray(v[idx], np.float32)
+        o, d = _aimed(tris, rng, 160)
+    elif name == "ties":
+        # each triangle 5 times: the copies straddle leaves of 4, so two
+        # leaves hold exact ties in t
+        v, idx = tproc.random_tris(60, seed=3, size=0.08)
+        tris = np.repeat(np.asarray(v[idx], np.float32), 5, axis=0)
+        o, d = _aimed(tris, rng, 160, jitter=0.0)
+    elif name == "axis":
+        tris = _quads()
+        # quad corners, edge midpoints and diagonal points
+        g = np.asarray([-1.0, -0.75, -0.5, 0.0, 0.25, 1.0], np.float32)
+        gx, gy = np.meshgrid(g, g)
+        pts = np.stack([gx.ravel(), gy.ravel()], 1).astype(np.float32)
+        o, d = [], []
+        for axis in range(3):
+            for sign in (1.0, -1.0):
+                q = np.insert(pts, axis, -1.5 * sign, axis=1)
+                o.append(q)
+                axis_dir = np.eye(3, dtype=np.float32)[axis] * sign
+                d.append(np.broadcast_to(axis_dir, q.shape))
+        o = np.concatenate(o).astype(np.float32)
+        d = np.concatenate(d).astype(np.float32)
+    elif name == "edges":
+        # a folded mesh: rays through its shared edges and vertices
+        v, idx = tproc.heightfield(13, extent=1.0, seed=2)
+        v = np.asarray(v, np.float32)
+        tris = v[np.asarray(idx)]
+        e = rng.integers(0, len(tris), 160)
+        k = rng.integers(0, 3, 160)
+        a, b = tris[e, k], tris[e, (k + 1) % 3]
+        w = np.where(rng.random(160) < 0.3, 0.0, 0.5)[:, None]
+        aim = (a * (1 - w) + b * w).astype(np.float32)
+        o = (aim + rng.normal(scale=1.0, size=(160, 3))).astype(np.float32)
+        o[:, 1] = np.abs(o[:, 1]) + 1.0
+        d = aim - o
+        d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    n = len(o)
+    t_min = np.full(n, 1e-4, np.float32)
+    t_max = np.full(n, 1e4, np.float32)
+    t_max[1::16] = -1.0                        # dead
+    t_max[2::16] = np.inf                      # the first-iteration window
+    t_min[3::16] = np.nan
+    t_max[4::16] = 1e30
+    t_max[5::16] = t_min[5::16]
+    t_min[6::16] = np.nan
+    t_max[6::16] = np.inf
+    if name == "soup64":                      # the plain loop runs the cap
+        t_max[7::16] = np.nan
+    rays = ttr.pack_rays(torch.as_tensor(o), torch.as_tensor(d),
+                         torch.as_tensor(t_min), torch.as_tensor(t_max))
+    return tris, rays, 4
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["soup", "cornell"])
+@pytest.mark.parametrize("case", ["soup", "cornell", "soup64", "soup1024",
+                                  "ties", "axis", "edges"])
 @pytest.mark.parametrize("occlusion", [False, True])
 def test_cuda_bvh_kernel_matches_plain(case, occlusion):
     """bvh_closest / bvh_any against their plain versions on the same
-    inputs: t, u, v, tri and the walk counts (node and triangle tests)
-    bit-equal for closest; the occlusion flags equal for any hit (its
-    kernel walks in another order, so its counts differ)."""
-    from royaltracer_dx_tpu_torch.ops import traverse as ttr
+    inputs: t, u, v, tri and all three stats (node tests, triangle tests,
+    root transitions) bit-equal for closest; the occlusion flags equal for
+    any hit (its kernel walks in another order, so its counts differ).
+    The cases of ``bvh_order_case`` add exact ties, axis-aligned rays,
+    shared edges, dead lanes, NaN bounds and t_max = inf."""
+    from royaltracer_dx_tpu_torch.ops import bvh as tbvh
 
     dev = _card()
-    b, rays = _bvh_case(case, dev)
+    if case in ("soup", "cornell"):
+        b, rays = _bvh_case(case, dev)
+    else:
+        tris, rays, ls = bvh_order_case(case)
+        b = tbvh.build_lbvh(torch.as_tensor(tris, device=dev), leaf_size=ls)
+        rays = rays.to(dev)
     name = "bvh_any" if occlusion else "bvh_closest"
     before = ttr.LAUNCHES[name]
     if occlusion:
@@ -358,18 +463,55 @@ def test_cuda_bvh_kernel_matches_plain(case, occlusion):
         p_occ, _ = ttr._any_plain(rays, b)
         assert torch.equal(k_occ, p_occ)
         assert 0 < int(k_occ.sum()) < rays.shape[0]
-        assert not bool(k_occ[rays[:, 7] <= rays[:, 6]].any())
+        assert not bool(k_occ[~(rays[:, 7] > rays[:, 6])].any())
     else:
         k_tuv, k_tri, k_st = ttr.bvh_closest(rays, b, stats=True)
         torch.cuda.synchronize()
         p_tuv, p_tri, p_st = ttr._closest_plain(rays, b)
         assert torch.equal(k_tri, p_tri)
-        assert torch.equal(k_tuv, p_tuv)
-        assert torch.equal(k_st[:, :2], p_st[:, :2])
+        assert torch.equal(k_tuv.view(torch.int32), p_tuv.view(torch.int32))
+        assert torch.equal(k_st, p_st)
         assert int((k_tuv[:, 0] < 1e29).sum()) > 0
     assert ttr.LAUNCHES[name] == before + 1
     work = ttr.bvh_work(rays, b, k_st, not occlusion)
     assert work["node_tests"] > 0 and work["bytes"] > 0
+
+
+@pytest.mark.gpu
+def test_cuda_bvh_kernels_match_plain_beyond_one_wave():
+    """1,100,000 lanes, many times what the persistent warps hold at once
+    (every warp takes 32 lanes at a time, again and again), every third
+    lane dead: both kernels against their plain versions on a strided
+    sample of 11,000 lanes, the closest kernel's stats included, and the
+    top-level slab tests of the closest kernel's root scans: at least the
+    ones the bound counts (``top_scan_tests``), and one a live lane."""
+    from royaltracer_dx_tpu_torch.ops import bvh as tbvh
+
+    dev = _card()
+    n = 1_100_000
+    tris, o, d, t_max = _scene_and_rays(n, seed=5)
+    b = tbvh.build_lbvh(torch.as_tensor(tris, device=dev), leaf_size=4)
+    rays = ttr.pack_rays(torch.as_tensor(o, device=dev),
+                         torch.as_tensor(d, device=dev), 1e-4,
+                         torch.as_tensor(t_max, device=dev))
+    tuv, tri, st = ttr.bvh_closest(rays, b, stats=True)
+    out = torch.empty_like(tuv), torch.empty_like(tri)
+    counters = ttr._launch("bvh_closest", rays, b, out,
+                           torch.empty_like(st))
+    occ, _ = ttr.bvh_any(rays, b)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], tuv) and torch.equal(out[1], tri)
+    live = int((rays[:, 7] > rays[:, 6]).sum())
+    assert int(counters[0]) >= n and int(counters[1]) >= live
+    assert int(counters[1]) >= int(ttr.top_scan_tests(rays, b).sum()) > 0
+    idx = torch.arange(0, n, 100, device=dev)
+    p_tuv, p_tri, p_st = ttr._closest_plain(rays[idx], b)
+    assert torch.equal(tri[idx], p_tri)
+    assert torch.equal(tuv[idx].view(torch.int32), p_tuv.view(torch.int32))
+    assert torch.equal(st[idx], p_st)
+    p_occ, _ = ttr._any_plain(rays[idx], b)
+    assert torch.equal(occ[idx], p_occ)
+    assert 0 < int(p_occ.sum()) < len(idx)
 
 
 @pytest.mark.gpu
@@ -399,3 +541,28 @@ def test_cuda_sharded_frame_matches_cpu():
     assert close.all(axis=-1).mean() >= 0.99
     np.testing.assert_allclose(a.reshape(-1, 3).mean(0),
                                b.reshape(-1, 3).mean(0), rtol=5e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bvh", [False, True])
+def test_cuda_bands_on_two_cards_match_one_card(bvh):
+    """A 2-band 96x54 menger frame on cuda:0 and cuda:1 equals the same
+    2-band frame with both bands on cuda:0, with the stream kernels and
+    with the LBVH kernels: each launch runs on its inputs' card.  Skips
+    on a machine with one card."""
+    from royaltracer_dx_tpu_torch.config import RenderConfig
+    from royaltracer_dx_tpu_torch.parallel.shard import ShardedRestirRenderer
+    from royaltracer_dx_tpu_torch.scene.procedural import menger_scene
+
+    _card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    imgs = []
+    for devs in (["cuda:0", "cuda:1"], ["cuda:0", "cuda:0"]):
+        scene, camera = menger_scene()
+        r = ShardedRestirRenderer(scene, camera, RenderConfig(
+            width=96, height=54, use_bvh=bvh), devices=devs)
+        r.render()
+        imgs.append(r.radiance())
+    assert np.isfinite(imgs[0]).all() and imgs[0].mean() > 0.0
+    np.testing.assert_array_equal(imgs[0], imgs[1])
