@@ -98,7 +98,31 @@ Phases (any failure exits non-zero and prints no result line):
               any-hit Mrays/s beside phase 4's stream kernels; (d) dragon
               through cli.main --bvh --animate: one refit update() and
               one frame, its launches checked as in (b).
-  7. the {"kernels": [...]} line, then the {"ok": true, ...} line.
+  7. cluster traversal: (a) cluster_mask, cluster_closest and
+              cluster_any against their plain versions on 512 whole tiles
+              of each batch (a lane sample would break the tiles): menger
+              1920x1080 camera rays and 2^20 random rays at the default
+              128 rays a tile and 128 triangles a cluster, 100,003 random
+              rays (the last tiles, padding included) and tiles of 96,
+              and sponza's 2,073,600-lane primary batch (each kernel
+              timed on the whole batch beside its bound); mask, entry,
+              t/u/v, triangle ids, occlusion and steps bit-equal, and the
+              card's cluster build equal to the CPU's; (b) the main path
+              of this slice: the 1920x1080 menger ReSTIR frame with
+              traversal="cluster", one warm-up and 3 timed frames with
+              every count set to 0 just before and read just after (each
+              cluster kernel launched, no stream or LBVH kernel, no plain
+              version), then one frame with every launch timed and its
+              bound, and each kernel on its largest batch timed and held
+              against the plain version on 512 tiles; (c) bench.py's
+              cornell_megakernel row (512x512) through cli.main
+              --renderer megakernel --traversal cluster, and a 1920x1080
+              menger DiOracle frame under it; (d) the stream kernels on a
+              morton and a median_host accel of sponza (130 blocks, not a
+              power of two) against their plain versions.  No sponza
+              ReSTIR frame under "cluster": its 18.7M-segment pass-3
+              batch would take minutes.
+  8. the {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 --out DIR writes the rendered images there as PNGs (else the scenes
 phase writes its CLI outputs into a temporary directory).  --profile runs
@@ -1351,7 +1375,8 @@ class BvhLaunches:
                 if "work" in r:
                     w = r["work"]
                     line.update(bound_ms=st.bound_ms(w, *rates)["bound_ms"],
-                                dense_top_bound_ms=dense_top_bound(w, rates),
+                                dense_top_bound_ms=dense_bound(
+                                    w, rates, "dense_top_fp32_ops"),
                                 top_tests_per_live_lane=w["top_tests"]
                                 / max(w["live_lanes"], 1),
                                 nodes_per_lane=w["nodes_per_lane"],
@@ -1374,14 +1399,16 @@ class BvhLaunches:
         return out
 
 
-def dense_top_bound(work, rates):
-    """The bound with S root slab tests a live closest lane in place of
-    one scan's (``dense_top_fp32_ops``): the yardstick of the first LBVH
-    kernels' times, to compare with them."""
+def dense_bound(work, rates, key="dense_fp32_ops"):
+    """The bound with ``work[key]`` in place of the operations the answer
+    needs: the earlier, denser yardstick, to compare with.  For the LBVH
+    ``dense_top_fp32_ops`` (S root slab tests a live closest lane, not
+    one scan's); for the clusters ``dense_fp32_ops`` (every padded ray,
+    and every lane of a walking tile against every triangle of a
+    step)."""
     from royaltracer_dx_tpu_torch.ops import stream_trace as st
 
-    return st.bound_ms(dict(work, fp32_ops=work["dense_top_fp32_ops"]),
-                       *rates)["bound_ms"]
+    return st.bound_ms(dict(work, fp32_ops=work[key]), *rates)["bound_ms"]
 
 
 def check_root_tests(label, work, scanned):
@@ -1477,8 +1504,8 @@ def bvh_kernel_entry(name, rec, rates, mismatches):
                                           if closest else None),
                 top_tests_per_live_lane=(work["top_tests"] / max(live, 1)
                                          if closest else None),
-                dense_top_bound_ms=(dense_top_bound(work, rates)
-                                    if closest else None),
+                dense_top_bound_ms=(dense_bound(
+                    work, rates, "dense_top_fp32_ops") if closest else None),
                 work=work, **bound)
 
 
@@ -1751,6 +1778,480 @@ def phase_lbvh(out_dir, rates, mismatches, terrain_stream):
     return out, entries
 
 
+# ------------------------------ phase 7 ----------------------------------
+
+CLUSTER_SOURCE = "royaltracer_dx_tpu_torch/csrc/cluster_traverse.cu"
+# the JAX routines the cluster kernels replace: XLA, not Pallas
+CLUSTER_KERNELS = {
+    "cluster_mask": ("royaltracer_dx_tpu/ops/cluster_traverse.py:109",
+                     "_tile_cluster_mask"),
+    "cluster_closest": ("royaltracer_dx_tpu/ops/cluster_traverse.py:268",
+                        "closest_hit_clustered (its while loops over "
+                        "_mt_tile)"),
+    "cluster_any": ("royaltracer_dx_tpu/ops/cluster_traverse.py:387",
+                    "any_hit_clustered"),
+}
+# whole tiles held against the plain versions (a lane sample would break
+# the tiles, and a tile's answer depends on all of its rays)
+CHECK_TILES = 512
+
+
+def all_launches() -> dict:
+    from royaltracer_dx_tpu_torch.ops import cluster_traverse as ct
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+    from royaltracer_dx_tpu_torch.ops import traverse as tv
+
+    return {**st.LAUNCHES, **tv.LAUNCHES, **ct.LAUNCHES}
+
+
+def reset_all_launches():
+    from royaltracer_dx_tpu_torch.ops import cluster_traverse as ct
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+    from royaltracer_dx_tpu_torch.ops import traverse as tv
+
+    for mod in (st, tv, ct):
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = 0
+
+
+def read_cluster_launches(label, kernels=tuple(CLUSTER_KERNELS)):
+    """The cluster kernels' launch counts of the path just driven; fails
+    unless each of ``kernels`` was launched in it, or if a stream or LBVH
+    kernel was."""
+    got = all_launches()
+    mine = {k: got[k] for k in CLUSTER_KERNELS}
+    if not all(mine[k] > 0 for k in kernels):
+        fail(f"{label}: a cluster kernel was not launched ({mine})")
+    other = {k: v for k, v in got.items() if k not in CLUSTER_KERNELS and v}
+    if other:
+        fail(f"{label}: other trace kernels were launched ({other})")
+    return mine
+
+
+class NoPlain:
+    """While a path runs on the card, fails if a cluster kernel's plain
+    version runs (every batch must launch the kernels)."""
+
+    def __enter__(self):
+        from royaltracer_dx_tpu_torch.ops import cluster_traverse as ct
+
+        self.ct = ct
+        self.saved = (ct._mask_plain, ct._phase_b_plain)
+
+        def refuse(*args, **kw):
+            fail("a cluster kernel's plain version ran on the card path")
+
+        ct._mask_plain = ct._phase_b_plain = refuse
+        return self
+
+    def __exit__(self, *exc):
+        self.ct._mask_plain, self.ct._phase_b_plain = self.saved
+
+
+class ClusterLaunches:
+    """While a path runs, wraps the three cluster kernels' wrappers: times
+    every call with CUDA events, launches each phase B batch once more
+    with its per-tile stats for the batch's work (``cluster_work``), and
+    keeps each kernel's largest call.  With ``stream`` (a StreamAccel of
+    the same triangles) the stream kernel traces each phase B batch's
+    rays too, timed alone."""
+
+    def __init__(self, rates, stream=None):
+        self.rates, self.stream = rates, stream
+        self.recs: list = []
+        self.largest: dict = {}
+
+    def __enter__(self):
+        from royaltracer_dx_tpu_torch.ops import cluster_traverse as ct
+
+        self.ct = ct
+        self.real = {n: getattr(ct, n) for n in CLUSTER_KERNELS}
+        for n in CLUSTER_KERNELS:
+            setattr(ct, n, self._wrap(n))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.real.items():
+            setattr(self.ct, n, fn)
+
+    def _wrap(self, name):
+        real = self.real[name]
+
+        def call(rows, cl, *args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real(rows, cl, *args)
+            end.record()
+            tile = args[-1]
+            stats = None
+            if name != "cluster_mask":
+                stats = real(rows, cl, *args, stats=True)[-1]
+            work = self.ct.cluster_work(rows, cl, tile, stats,
+                                        name == "cluster_closest")
+            rec = dict(name=name, lanes=rows.shape[0], start=start, end=end,
+                       work=work)
+            if self.stream is not None and stats is not None:
+                from royaltracer_dx_tpu_torch.ops import stream_trace as st
+
+                call = st.prepare_stream(rows[:, 0:3], rows[:, 3:6],
+                                         self.stream, rows[:, 6],
+                                         rows[:, 7], 16)
+                kern = (st.stream_closest if name == "cluster_closest"
+                        else st.stream_any)
+                rec["stream_ms"], _ = cuda_ms(lambda: kern(
+                    *call, self.stream.blk_tris, self.stream.blk_boxes))
+            self.recs.append(rec)
+            if rows.shape[0] > self.largest.get(name, (0,))[0]:
+                self.largest[name] = (rows.shape[0], (rows, cl, *args))
+            return out
+
+        return call
+
+    def per_kernel(self):
+        """Per kernel: launches, the summed ms and bound of its batches,
+        and one line per batch."""
+        from royaltracer_dx_tpu_torch.ops import stream_trace as st
+
+        out = {}
+        for name in CLUSTER_KERNELS:
+            lines = []
+            for r in self.recs:
+                if r["name"] != name:
+                    continue
+                b = st.bound_ms(r["work"], *self.rates)
+                lines.append(dict(r["work"], ms=r["start"].elapsed_time(
+                    r["end"]), bound_ms=b["bound_ms"],
+                    bound_by=b["bound_by"],
+                    dense_bound_ms=dense_bound(r["work"], self.rates),
+                    stream_ms=r.get("stream_ms")))
+            out[name] = dict(launches=len(lines), batches=lines,
+                             **{k: sum(x[k] for x in lines) for k in (
+                                 "ms", "bound_ms", "dense_bound_ms")},
+                             stream_ms=sum(x["stream_ms"] or 0.0
+                                           for x in lines))
+        return out
+
+
+def cluster_check(label, rows, cl, tile, mismatches, at=None):
+    """The three kernels against their plain versions on CHECK_TILES whole
+    tiles of a batch (from tile ``at``; default: the middle ones): the
+    mask and entry tables, t/u/v, triangle ids, occlusion and the per-tile
+    stats (steps, needed tests) bit-equal.  Returns the times of kernel
+    and plain version on those tiles."""
+    from royaltracer_dx_tpu_torch.ops import cluster_traverse as ct
+
+    n_t = rows.shape[0] // tile
+    k = min(CHECK_TILES, n_t)
+    t0 = (n_t - k) // 2 if at is None else at
+    sub = rows[t0 * tile:(t0 + k) * tile]
+    ms, plain = {}, {}
+    ms["cluster_mask"], (mask, entry) = cuda_ms(
+        lambda: ct.cluster_mask(sub, cl, tile))
+    plain["cluster_mask"], (p_mask, p_entry) = cuda_ms(
+        lambda: ct._mask_plain(sub, cl, tile))
+    wl, went, count = ct.worklists(mask, entry)
+    ms["cluster_closest"], kc = cuda_ms(lambda: ct.cluster_closest(
+        sub, cl, wl, went, count, tile, stats=True))
+    plain["cluster_closest"], pc = cuda_ms(lambda: ct._phase_b_plain(
+        sub, cl, wl, went, count, tile, False))
+    ms["cluster_any"], ka = cuda_ms(lambda: ct.cluster_any(
+        sub, cl, wl, count, tile, stats=True))
+    plain["cluster_any"], pa = cuda_ms(lambda: ct._phase_b_plain(
+        sub, cl, wl, None, count, tile, True))
+    bad = {
+        "cluster_mask": int((mask != p_mask).sum() + (entry != p_entry).sum()),
+        "cluster_closest": int(sum((a != b).sum() for a, b in zip(kc, pc))),
+        "cluster_any": int(sum((a != b).sum() for a, b in zip(ka, pa)))}
+    errs = {"cluster_mask": float((entry - p_entry).abs().max()),
+            "cluster_closest": float((kc[0] - pc[0]).abs().max()),
+            "cluster_any": float((ka[0] - pa[0]).abs().max())}
+    for name in CLUSTER_KERNELS:
+        mismatches.setdefault(name, []).append(dict(
+            case=label, lanes=int(sub.shape[0]), bad=bad[name],
+            max_abs_err=errs[name]))
+    if any(bad.values()):
+        fail(f"{label}: the cluster kernels differ from their plain versions "
+             f"on {k} tiles of {tile} ({bad} values)")
+    hits = int((kc[0][:, 0] < 1e30).sum())
+    print(f"  {label}: {k} tiles of {tile} rays from tile {t0} (of {n_t}) "
+          f"equal to the plain versions (mask, entry, t/u/v, tri, occlusion,"
+          f" steps and tests); {hits} hits, {int(ka[0].sum())} occluded, "
+          f"steps a tile {float(kc[2][:, 0].float().mean()):.2f} closest / "
+          f"{float(ka[1][:, 0].float().mean()):.2f} any of "
+          f"{float(count.float().mean()):.2f} overlapped; kernel / plain ms "
+          + ", ".join(f"{n} {ms[n]:.3f} / {plain[n]:.3f}"
+                      for n in CLUSTER_KERNELS), flush=True)
+    if hits == 0 or int(count.sum()) == 0:
+        fail(f"{label}: the checked tiles do no work")
+    return dict(lanes=int(sub.shape[0]), ms=ms, plain_ms=plain)
+
+
+def cluster_timed(label, rows, cl, tile, rates):
+    """The three kernels on a whole batch: ms (3 launches after a warm
+    one) and the bound of each (``cluster_work``, from one more launch
+    with stats), with the dense bound beside it."""
+    from royaltracer_dx_tpu_torch.ops import cluster_traverse as ct
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+
+    mask, entry = ct.cluster_mask(rows, cl, tile)
+    wl, went, count = ct.worklists(mask, entry)
+    calls = {
+        "cluster_mask": lambda **kw: ct.cluster_mask(rows, cl, tile),
+        "cluster_closest": lambda **kw: ct.cluster_closest(
+            rows, cl, wl, went, count, tile, **kw),
+        "cluster_any": lambda **kw: ct.cluster_any(rows, cl, wl, count, tile,
+                                                   **kw)}
+    out = {}
+    for name, fn in calls.items():
+        cuda_ms(fn)
+        ms, _ = cuda_ms(fn, reps=3)
+        stats = None if name == "cluster_mask" else fn(stats=True)[-1]
+        work = ct.cluster_work(rows, cl, tile, stats,
+                               name == "cluster_closest")
+        out[name] = dict(ms=ms, **st.bound_ms(work, *rates), work=work,
+                         dense_bound_ms=dense_bound(work, rates))
+    print(f"  {label} ({rows.shape[0]} lanes, {cl.num_clusters} clusters of "
+          f"{cl.group}, tiles of {tile}): "
+          + "; ".join(f"{n} {v['ms']:.3f} ms, bound {v['bound_ms']:.3f} ms "
+                      f"({v['bound_by']}; dense {v['dense_bound_ms']:.3f})"
+                      for n, v in out.items())
+          + f"; closest steps a tile "
+          f"{out['cluster_closest']['work']['steps_per_tile']:.2f} (max "
+          f"{out['cluster_closest']['work']['max_steps']}), any "
+          f"{out['cluster_any']['work']['steps_per_tile']:.2f}", flush=True)
+    return out
+
+
+def varied_bounds(n, dev):
+    """t_max per lane: every seventh lane dead (-1), every other one 1.0,
+    the rest 1e4."""
+    lane = torch.arange(n, device=dev)
+    return torch.where(lane % 7 == 0, -1.0,
+                       torch.where(lane % 2 == 0, 1.0, 1e4))
+
+
+def phase_cluster(out_dir, rates, mismatches):
+    """(a) the cluster kernels against their plain versions, (b) the
+    1080p menger ReSTIR frame under traversal="cluster" (the slice's main
+    path), (c) a megakernel and a DiOracle frame under it, (d) the stream
+    kernels on morton and median_host accels.  Returns (results, kernel
+    entries)."""
+    from royaltracer_dx_tpu_torch import cli
+    from royaltracer_dx_tpu_torch.camera import generate_rays
+    from royaltracer_dx_tpu_torch.config import RenderConfig
+    from royaltracer_dx_tpu_torch.ops import cluster_traverse as ct
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+    from royaltracer_dx_tpu_torch.render.di_oracle import DiOracle
+    from royaltracer_dx_tpu_torch.render.restir_renderer import RestirRenderer
+    from royaltracer_dx_tpu_torch.scene.procedural import menger_scene
+
+    dev = torch.device("cuda")
+    out = {}
+
+    def camera_batch(scene_name, w, h):
+        scene, camera = cli.build_scene(scene_name)
+        sa = scene.flatten(scene.build_materials(device=dev),
+                           build_clusters=True, device=dev)
+        ca = {k: torch.as_tensor(x, device=dev)
+              for k, x in camera.matrices(w / h).items()}
+        o, d = generate_rays(ca, w, h)
+        return sa, o, d
+
+    # ---- (a) kernels against their plain versions
+    t0 = time.perf_counter()
+    sa, o, d = camera_batch("menger", 1920, 1080)
+    cl = sa.clusters
+    cpu = ct.build_clusters(sa.tri_verts.cpu(), cl.group)
+    if not all(torch.equal(getattr(cl, f).cpu(), getattr(cpu, f))
+               for f in ("tri_planes", "tri_index", "aabb_lo", "aabb_hi")):
+        fail("menger: the clusters built on the card differ from the CPU's")
+    print(f"  menger: {sa.num_triangles} triangles, {cl.num_clusters} "
+          f"clusters of {cl.group} (equal to the CPU build)", flush=True)
+    n = o.shape[0]
+    cluster_check("menger camera rays",
+                  ct.prepare_rays(o, d, 1e-4, varied_bounds(n, dev), 128),
+                  cl, 128, mismatches)
+    for label, count, tile, at in (("menger random rays", 1 << 20, 128, None),
+                                   ("menger 100,003 random rays", 100003,
+                                    128, -1),
+                                   ("menger random rays, tiles of 96",
+                                    1 << 18, 96, None)):
+        ro, rd = random_rays(count, -0.5, 1.5, 7, dev)
+        rows = ct.prepare_rays(ro, rd, 1e-4, varied_bounds(count, dev), tile)
+        n_t = rows.shape[0] // tile
+        cluster_check(label, rows, cl, tile, mismatches,
+                      None if at is None else n_t - min(CHECK_TILES, n_t))
+    del sa, o, d, cl, cpu
+    sa, o, d = camera_batch("sponza", 1920, 1080)
+    rows = ct.prepare_rays(o, d, 1e-4, 1e4, 128)
+    out["sponza_primary"] = dict(
+        triangles=sa.num_triangles, clusters=sa.clusters.num_clusters,
+        **cluster_timed("sponza primary batch", rows, sa.clusters, 128,
+                        rates))
+    cluster_check("sponza primary batch", rows, sa.clusters, 128, mismatches)
+    sponza_tris = sa.tri_verts
+    del sa, o, d, rows
+    torch.cuda.empty_cache()
+    print(f"  (a) {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- (b) the main path: the menger ReSTIR frame under "cluster"
+    t0 = time.perf_counter()
+    scene, camera = menger_scene()
+    renderer = RestirRenderer(scene, camera, RenderConfig(traversal="cluster"))
+    rsa = renderer.scene_arrays
+    if rsa.clusters is None or rsa.stream is not None or rsa.bvh is not None:
+        fail("menger cluster: the scene was not flattened for the clusters "
+             "alone")
+    renderer.render()                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    frames = 3
+    reset_all_launches()
+    with NoPlain():
+        frame_ms = [cuda_ms(renderer.render)[0] for _ in range(frames)]
+    launches = read_cluster_launches("menger cluster frames")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    img = renderer.radiance()
+    if not (np.isfinite(img).all() and img.mean() > 0.0):
+        fail("menger cluster: radiance is not finite and positive")
+    if not bool((renderer.fb.count == frames + 1).all()):
+        fail("menger cluster: fb.count is not 4 everywhere")
+    per_frame = {k: v / frames for k, v in launches.items()}
+    n_cl = rsa.clusters.num_clusters
+    print(f"  menger 1920x1080 ReSTIR, traversal cluster ({n_cl} clusters): "
+          f"frames {[round(x, 3) for x in frame_ms]} ms, launches per frame "
+          f"{per_frame}, radiance mean {img.mean():.6f}, peak memory "
+          f"{peak:.2f} GiB; no stream or LBVH launch, no plain version",
+          flush=True)
+    if out_dir:
+        write_png(os.path.join(out_dir, "menger_cluster.png"),
+                  renderer.image())
+    stream = st.build_stream_accel(rsa.tri_verts)
+    with ClusterLaunches(rates, stream) as rec:
+        timed_ms, _ = cuda_ms(renderer.render)
+    pk = rec.per_kernel()
+    print(f"  menger cluster frame with timed launches: {timed_ms:.3f} ms "
+          "(the stream kernels timed on each phase B batch's rays beside "
+          "them)", flush=True)
+    for name in CLUSTER_KERNELS:
+        beside = ("" if name == "cluster_mask" else
+                  f"; the stream kernel on the same rays "
+                  f"{pk[name]['stream_ms']:.3f} ms")
+        print(f"  {name}: {pk[name]['launches']} launches, "
+              f"{pk[name]['ms']:.3f} ms a frame (bound "
+              f"{pk[name]['bound_ms']:.3f} ms; dense "
+              f"{pk[name]['dense_bound_ms']:.3f}){beside}; batches:",
+              flush=True)
+        for b in pk[name]["batches"]:
+            extra = ("" if name == "cluster_mask" else
+                     f", steps a tile {b['steps_per_tile']:.2f} (max "
+                     f"{b['max_steps']}, live tiles {b['live_tiles']} of "
+                     f"{b['tiles']}); stream kernel {b['stream_ms']:.3f} ms")
+            print(f"    {b['lanes']} lanes: {b['ms']:.3f} ms, bound "
+                  f"{b['bound_ms']:.3f} ms ({b['bound_by']}; dense "
+                  f"{b['dense_bound_ms']:.3f}){extra}", flush=True)
+    entries = {}
+    for name, (replaces, fn) in CLUSTER_KERNELS.items():
+        lanes, (rows, cl, *rest) = rec.largest[name]
+        tile = rest[-1]
+        big = cluster_timed(f"{name}'s largest menger batch", rows, cl, tile,
+                            rates)[name]
+        chk = cluster_check(f"{name}'s largest menger batch", rows, cl, tile,
+                            mismatches)
+        entries[name] = dict(
+            name=name, route="cuda", source=CLUSTER_SOURCE,
+            replaces=replaces, replaces_fn=fn, launches=launches[name],
+            ms=big["ms"], bound_ms=big["bound_ms"],
+            bound_by=big["bound_by"], dense_bound_ms=big["dense_bound_ms"],
+            bytes_ms=big["bytes_ms"],
+            ops_ms=big["ops_ms"], shape_lanes=lanes,
+            plain_ms=chk["plain_ms"][name], plain_lanes=chk["lanes"],
+            slice_ms=chk["ms"][name], library_ms=None,
+            frame_ms=pk[name]["ms"], frame_launches=pk[name]["launches"],
+            frame_bound_ms=pk[name]["bound_ms"],
+            frame_dense_bound_ms=pk[name]["dense_bound_ms"],
+            frame_stream_ms=pk[name]["stream_ms"],
+            frame_batches=pk[name]["batches"],
+            sponza_primary={k: out["sponza_primary"][name][k] for k in (
+                "ms", "bound_ms", "dense_bound_ms")},
+            resources=ct.BUILD_INFO["resources"][name])
+    out["menger_frame"] = dict(frame_ms=frame_ms, timed_frame_ms=timed_ms,
+                               launches_per_frame=per_frame, peak_gib=peak,
+                               radiance_mean=float(img.mean()))
+    del renderer, rec, rsa, stream
+    torch.cuda.empty_cache()
+    print(f"  (b) {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- (c) the megakernel (the cornell_megakernel row) and the DiOracle
+    t0 = time.perf_counter()
+    reset_all_launches()
+    res = cli.main(["--renderer", "megakernel", "--scene", "cornell",
+                    "--width", "512", "--height", "512", "--frames", "2",
+                    "--traversal", "cluster", "--out",
+                    os.path.join(out_dir, "cornell_mk_cluster.png")])
+    mk = read_cluster_launches("cornell megakernel cluster")
+    r = res["renderer"]
+    img = r.radiance()
+    if not (np.isfinite(img).all() and img.mean() > 0.0 and r.frame == 2):
+        fail("cornell megakernel cluster: radiance is not finite and positive")
+    print(f"  cornell_megakernel 512x512 --traversal cluster: frames "
+          f"{[round(x, 3) for x in res['frame_ms']]} ms, "
+          f"{r.metrics['mrays_per_s']:.2f} Mrays/s, launches {mk}",
+          flush=True)
+    out["cornell_megakernel"] = dict(frame_ms=res["frame_ms"], launches=mk,
+                                     mrays_per_s=r.metrics["mrays_per_s"])
+    del res, r
+    scene, camera = menger_scene()
+    reset_all_launches()
+    oracle = DiOracle(scene, camera, RenderConfig(traversal="cluster"))
+    ms, _ = cuda_ms(oracle.render)
+    di = read_cluster_launches("menger DiOracle cluster")
+    img = oracle.radiance()
+    if not (np.isfinite(img).all() and img.mean() > 0.0):
+        fail("menger DiOracle cluster: radiance is not finite and positive")
+    print(f"  menger DiOracle 1920x1080, traversal cluster: construction and"
+          f" one frame ({ms:.3f} ms the frame), launches {di}, radiance mean "
+          f"{img.mean():.6f}", flush=True)
+    out["di_oracle"] = dict(frame_ms=ms, launches=di)
+    del oracle
+    torch.cuda.empty_cache()
+    print(f"  (c) {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- (d) the stream kernels on the morton and median_host accels
+    t0 = time.perf_counter()
+    o, d = camera_rays(512, 3.0, dev)
+    scale = (sponza_tris.amax(dim=(0, 1)) - sponza_tris.amin(dim=(0, 1)))
+    center = 0.5 * (sponza_tris.amax(dim=(0, 1))
+                    + sponza_tris.amin(dim=(0, 1)))
+    o = o * scale.max() * 0.2 + center                 # inside the atrium
+    builds = {}
+    for method in ("morton", "median_host"):
+        ms, acc = cuda_ms(lambda: st.build_stream_accel(sponza_tris, method))
+        if method == "morton":
+            cpu = st.build_stream_accel(sponza_tris.cpu(), method)
+            if not all(torch.equal(getattr(acc, f).cpu(), getattr(cpu, f))
+                       for f in ("perm", "blk_tris", "blk_boxes", "top_lo",
+                                 "top_hi")):
+                fail("sponza morton: the card's build differs from the CPU's")
+        rows, wl, went, cnt = st.prepare_stream(o, d, acc, 1e-4, 1e4, 16)
+        got = {}
+        for name in KERNELS:
+            mm, _ = compare_kernel(name, (rows, wl, went, cnt, acc.blk_tris,
+                                          acc.blk_boxes))
+            mismatches[name].append(dict(mm, case=f"sponza {method}"))
+            got[name] = mm
+        builds[method] = dict(build_ms=ms, blocks=acc.num_blocks,
+                              checks=got)
+        print(f"  sponza {method} accel: {acc.num_blocks} blocks, built in "
+              f"{ms:.1f} ms; stream_closest and stream_any on "
+              f"{rows.shape[0]} lanes equal to the plain version ("
+              f"{got['stream_closest']['ties']} exact-t ties)", flush=True)
+    out["stream_builds"] = builds
+    print(f"  (d) {time.perf_counter() - t0:.1f} s", flush=True)
+    return out, entries
+
+
 # -------------------------------- main -----------------------------------
 
 
@@ -1768,6 +2269,7 @@ def main() -> None:
     sys.path.insert(0, ROOT)
     import royaltracer_dx_tpu_torch  # noqa: F401  (sets the TF32 switches)
     from royaltracer_dx_tpu_torch.config import RenderConfig
+    from royaltracer_dx_tpu_torch.ops import cluster_traverse as ct
     from royaltracer_dx_tpu_torch.ops import stream_trace as st
     from royaltracer_dx_tpu_torch.ops import traverse as tv
     from royaltracer_dx_tpu_torch.render.restir_renderer import RestirRenderer
@@ -1795,11 +2297,12 @@ def main() -> None:
           f"memory {hbm / 1e12:.2f} TB/s; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     # one nvcc per source, started together
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         for fut in [pool.submit(st.build_kernels),
-                    pool.submit(tv.build_kernels)]:
+                    pool.submit(tv.build_kernels),
+                    pool.submit(ct.build_kernels)]:
             fut.result()
-    for info in (st.BUILD_INFO, tv.BUILD_INFO):
+    for info in (st.BUILD_INFO, tv.BUILD_INFO, ct.BUILD_INFO):
         print(f"  built {os.path.relpath(info['path'], ROOT)} in "
               f"{info['seconds']:.1f} s ({' '.join(info['flags'])})",
               flush=True)
@@ -1818,6 +2321,11 @@ def main() -> None:
               f"threads resident per SM, {res['registers']} registers per "
               f"thread, {res['shared_bytes']} B of dynamic shared memory "
               "per block", flush=True)
+    for name, res in ct.BUILD_INFO["resources"].items():
+        print(f"  {name}: {res['ctas_per_sm']} CTAs of 128 threads resident "
+              f"per SM at tiles and clusters of 128, {res['registers']} "
+              f"registers per thread, {res['shared_bytes']} B of shared "
+              "memory per CTA", flush=True)
 
     # ---- the scene of the main path
     scene, camera = menger_scene()
@@ -1918,7 +2426,15 @@ def main() -> None:
         print(f"  sharding and LBVH phase {time.perf_counter() - t0:.1f} s",
               flush=True)
 
-    # ---- phase 7: the kernels line and the ok line
+        # ---- phase 7: the cluster traversal
+        print("phase 7: cluster traversal", flush=True)
+        t0 = time.perf_counter()
+        cluster, cluster_entries = phase_cluster(out_dir, (peak_flops, hbm),
+                                                 mismatches)
+        print(f"  cluster phase {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+    # ---- phase 8: the kernels line and the ok line
     for e in entries:
         e["scenes"] = dict(by_kernel[e["name"]], **by_kernel_o[e["name"]])
         e["max_abs_err"] = max(c["max_abs_err"] for c in mismatches[e["name"]])
@@ -1930,12 +2446,19 @@ def main() -> None:
                           lanes_checked=sum(c["lanes"] for c in checks),
                           lanes_differ=sum(c["bad"] for c in checks)))
         entries.append(bvh_entries[name])
+    for name, e in cluster_entries.items():
+        checks = mismatches[name]
+        e.update(max_abs_err=max(c["max_abs_err"] for c in checks),
+                 mismatch=dict(tile_slices_checked=len(checks),
+                               lanes_checked=sum(c["lanes"] for c in checks),
+                               values_differ=sum(c["bad"] for c in checks)))
+        entries.append(e)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries, "frame_ms": timed,
                       "small_frames_agree": agree, "profile": profile,
                       "scenes": scenes, "oracles": oracles,
                       "sharding": sharding, "lbvh": lbvh,
-                      "device": name_power}), flush=True)
+                      "cluster": cluster, "device": name_power}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

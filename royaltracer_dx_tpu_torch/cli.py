@@ -17,16 +17,19 @@ Usage:
       --width 1920 --height 1080 --frames 8
   python -m royaltracer_dx_tpu_torch.cli --cpu --devices 2 --scene cornell \
       --width 32 --height 32 --frames 3
+  python -m royaltracer_dx_tpu_torch.cli --scene menger --traversal \
+      cluster --width 1920 --height 1080 --frames 8
 
-``--bvh`` (or ``--traversal bvh``) traces through the LBVH kernels.
-``--devices N`` shards the ReSTIR render into N pixel bands
-(``parallel/shard.py``): with ``--cpu`` N bands on the CPU (the JAX CLI's
-virtual host devices), else on cuda:0 .. cuda:N-1; as in the JAX CLI the
-megakernel renderer ignores it.  ``--traversal cluster`` is not ported and
-raises NotImplementedError naming ROADMAP A'11.  ``--scene reference`` reads
-garage.obj and monke.obj from $ROYALTRACER_REFERENCE_INCLUDE (default:
-``reference/`` at the repo root) and fails, as the JAX CLI does, when
-they are absent.  ``main`` returns the renderer and the per-frame times.
+``--bvh`` (or ``--traversal bvh``) traces through the LBVH kernels,
+``--traversal cluster`` through the tile-clustered kernels (both
+renderers, and with ``--devices``).  ``--devices N`` shards the ReSTIR
+render into N pixel bands (``parallel/shard.py``): with ``--cpu`` N bands
+on the CPU (the JAX CLI's virtual host devices), else on cuda:0 ..
+cuda:N-1; as in the JAX CLI the megakernel renderer ignores it.
+``--scene reference`` reads garage.obj and monke.obj from
+$ROYALTRACER_REFERENCE_INCLUDE (default: ``reference/`` at the repo root)
+and fails, as the JAX CLI does, when they are absent.  ``main`` returns
+the renderer and the per-frame times.
 """
 
 from __future__ import annotations
@@ -143,7 +146,7 @@ def main(argv=None) -> dict:
                     choices=("", "brute", "cluster", "bvh"),
                     help="acceleration scheme (default: auto; on the card "
                          "every trace runs the stream kernels, or with bvh "
-                         "the LBVH kernels)")
+                         "or cluster the LBVH or cluster kernels)")
     ap.add_argument("--out", default="render.png")
     ap.add_argument("--snapshot-every", type=int, default=0)
     ap.add_argument("--checkpoint", default="", help="save/resume state npz")
@@ -164,9 +167,6 @@ def main(argv=None) -> dict:
                     help="TEA seed time term: frame counter (deterministic)"
                          " or wall-clock nanos (the reference's behavior)")
     args = ap.parse_args(argv)
-    if args.traversal == "cluster":
-        raise NotImplementedError("--traversal cluster: the cluster traversal"
-                                  " is not ported (ROADMAP A'11)")
 
     import torch
 

@@ -63,13 +63,14 @@ class RenderConfig:
 
     aa_jitter: bool = True
 
-    # "auto" | "brute" | "stream" | "bvh" run in this port; "cluster"
-    # raises NotImplementedError (ops/restir.py).
+    # "auto" | "brute" | "stream" | "bvh" | "cluster" (ops/restir.py)
     traversal: str = "auto"
     stream_wb: int = 16
     # GI wavefront compaction: "on" | "off" | "auto" ("auto" turns it on
     # for scenes of more than 128 clusters, restir.py:115-127).
     gi_compaction: str = "auto"
+    # traversal "cluster": triangles a cluster and rays a tile (1-1024 on
+    # the card, ops/cluster_traverse.py)
     cluster_group: int = 128
     cluster_tile: int = 128
     use_bvh: bool = False

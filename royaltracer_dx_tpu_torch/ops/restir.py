@@ -6,19 +6,24 @@ pairwise MIS, spatial rejection tests and reprojection — the functions the
 renderer and restir_gi call.
 
 Trace dispatch: under traversal "bvh" every closest-hit and occlusion
-batch goes through the LBVH (ops/traverse.py: the kernels on the card,
-their plain versions on the CPU), as in the JAX package (:198-201,
-:235-238).  Otherwise on the card every batch launches the stream kernels
+batch goes through the LBVH (ops/traverse.py), under "cluster" through
+the clusters in tiles of ``cfg.cluster_tile`` rays
+(ops/cluster_traverse.py), in both cases the kernels on the card and
+their plain versions on the CPU, as in the JAX package (:198-207,
+:235-243).  Otherwise on the card every batch launches the stream kernels
 (ops/stream_trace.py), whatever ``cfg.traversal`` says ("auto" / "brute" /
 "stream"); on the CPU the port follows the JAX package's decisions
 (``resolve_closest_mode`` / ``resolve_any_mode``, :88-107) between brute
-force and the stream kernels' plain version.  The "cluster" traversal is
-not ported and raises.
+force and the stream kernels' plain version.
 
 The JAX package splits trace batches above 4M rays into sequential chunks
-(``_chunked_rays``, :143-168) to fit TPU HBM; on an 80 GB card a whole
-1080p batch — pass 3's fused 9N = 18.7M segments included — fits, so the
-port traces every batch in one piece.
+aligned to 128 rays (``_chunked_rays``, :143-168) to fit TPU HBM; on an
+80 GB card a whole 1080p batch — pass 3's fused 9N = 18.7M segments
+included — fits, so the port traces every batch in one piece.  That
+equals the chunked trace everywhere but under the cluster traversal with
+a ``cluster_tile`` that does not divide 128, where the chunk boundaries
+would cut tiles, and so decide answers: the port refuses such a batch
+above 2^22 rays (``cluster_tile_for``).
 """
 
 from __future__ import annotations
@@ -33,6 +38,10 @@ from royaltracer_dx_tpu_torch.config import (
     RenderConfig,
 )
 from royaltracer_dx_tpu_torch.ops import bsdf, light_sampling
+from royaltracer_dx_tpu_torch.ops.cluster_traverse import (
+    any_hit_clustered,
+    closest_hit_clustered,
+)
 from royaltracer_dx_tpu_torch.ops.intersect import (
     any_hit_brute,
     as_planes3,
@@ -56,6 +65,8 @@ MISS_ID_I32 = MISS_MATERIAL_ID - (1 << 32)
 # stream_trace.py:1444 — scenes of at most this many clusters take the JAX
 # package's single-level flat path (a dispatch input on the CPU only)
 _FLAT_MAX_CLUSTERS = 128
+# restir.py:140 — the JAX package traces larger batches in chunks
+_TRACE_CHUNK_RAYS = 1 << 22
 
 
 # ------------------------------ dispatch --------------------------------
@@ -102,24 +113,21 @@ def wants_gi_compaction(scene: SceneArrays, cfg: RenderConfig) -> bool:
             and scene.stream.num_blocks * S > _FLAT_MAX_CLUSTERS)
 
 
-def check_traversal(cfg: RenderConfig) -> None:
-    """Raise for the traversal the port does not have."""
-    if cfg.accel == "cluster":
-        raise NotImplementedError(
-            f"traversal={cfg.accel!r} is not ported (ROADMAP A'11); use "
-            "auto, brute, stream or bvh")
-
-
 def trace_mode(scene: SceneArrays, cfg: RenderConfig, n: int,
                coherent: bool = True, closest: bool = True) -> str:
-    """Which trace a batch takes: "bvh" (the LBVH kernels), "stream" (the
-    stream kernels) or "brute"."""
-    check_traversal(cfg)
+    """Which trace a batch takes: "bvh" (the LBVH kernels), "cluster" (the
+    cluster kernels), "stream" (the stream kernels) or "brute"."""
     if cfg.accel == "bvh":
         if scene.bvh is None:
             raise ValueError("traversal='bvh' on a scene without an LBVH "
                              "(Scene.flatten(build_bvh=True) builds it)")
         return "bvh"
+    if cfg.accel == "cluster":
+        if scene.clusters is None:
+            raise ValueError("traversal='cluster' on a scene without "
+                             "clusters (Scene.flatten(build_clusters=True) "
+                             "builds them)")
+        return "cluster"
     if scene.device.type == "cuda":
         if scene.stream is None:
             raise ValueError("CUDA scene without a stream accel "
@@ -130,6 +138,18 @@ def trace_mode(scene: SceneArrays, cfg: RenderConfig, n: int,
     return resolve_any_mode(scene, cfg, n)
 
 
+def cluster_tile_for(n: int, tile: int) -> int:
+    """``tile`` for a cluster trace of ``n`` rays in one piece.  Above
+    2^22 rays the JAX package traces 128-aligned chunks (``_chunked_rays``,
+    :143-168): a tile that divides 128 keeps the batch's tiles there, one
+    that does not is cut by the chunks, so such a batch is refused."""
+    if n > _TRACE_CHUNK_RAYS and 128 % tile:
+        raise ValueError(
+            f"cluster_tile={tile}: a batch of {n} rays (above "
+            f"{_TRACE_CHUNK_RAYS}) takes a cluster_tile that divides 128")
+    return tile
+
+
 def _closest_dispatch(scene: SceneArrays, origins, dirs, cfg: RenderConfig,
                       t_min, t_max, coherent: bool = True):
     """The TraceRay dispatch (:171-213)."""
@@ -138,6 +158,10 @@ def _closest_dispatch(scene: SceneArrays, origins, dirs, cfg: RenderConfig,
     mode = trace_mode(scene, cfg, n, coherent, True)
     if mode == "bvh":
         return closest_hit_bvh(op, dp, scene.bvh, t_min, t_max)
+    if mode == "cluster":
+        tile = cluster_tile_for(n, cfg.cluster_tile)
+        return closest_hit_clustered(op, dp, scene.clusters, t_min, t_max,
+                                     tile=tile)
     if mode == "stream":
         return closest_hit_stream(op, dp, scene.stream, t_min, t_max,
                                   wb=cfg.stream_wb)
@@ -152,6 +176,10 @@ def _any_dispatch(scene: SceneArrays, origins, dirs, cfg: RenderConfig,
     mode = trace_mode(scene, cfg, n, True, False)
     if mode == "bvh":
         return any_hit_bvh(op, dp, scene.bvh, t_min, t_max)
+    if mode == "cluster":
+        tile = cluster_tile_for(n, cfg.cluster_tile)
+        return any_hit_clustered(op, dp, scene.clusters, t_min, t_max,
+                                 tile=tile)
     if mode == "stream":
         return any_hit_stream(op, dp, scene.stream, t_min, t_max,
                               wb=cfg.stream_wb)

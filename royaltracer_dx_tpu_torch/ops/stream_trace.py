@@ -1,9 +1,11 @@
 """Stream traversal: the two-level StreamAccel and its trace kernels (port
 of royaltracer_dx_tpu/ops/stream_trace.py).
 
-Build half: ``build_stream_accel(method="median")`` ->
-``_build_device_median`` / ``_median_perm_device`` -> ``_layout_device``
-(stream_trace.py:129-404), producing exactly the fields the kernels read:
+Build half: ``build_stream_accel`` with the JAX package's three orders
+-- ``"median"`` (``_build_device_median`` / ``_median_perm_device``, the
+default), ``"morton"`` (``_build_device_morton``) and ``"median_host"``
+(``_median_split_perm``, host numpy) -- then ``_layout_device``
+(stream_trace.py:112-394), producing exactly the fields the kernels read:
 ``blk_tris`` [B, 9S, G], ``blk_boxes`` [B, 6, 128], ``top_lo`` / ``top_hi``
 [B, 3] and ``perm``; ``refit_stream_accel`` (:396-405) re-lays moved
 triangles out in the build's order.  The bf16 box rows and the
@@ -188,6 +190,53 @@ def _build_device_median(tri_padded, num_tris: int) -> StreamAccel:
     return _layout_device(sorted_tris, order, p // (S * G))
 
 
+def _build_device_morton(tri_padded, num_tris: int) -> StreamAccel:
+    """Morton order of the centroids, a stable sort, + flat-row layout
+    (stream_trace.py:112-126); tri_padded is [B*S*G, 3, 3] with +INF
+    padding, which ``_layout_device`` zeroes through ``perm < 0``."""
+    from royaltracer_dx_tpu_torch.ops.bvh import morton_codes
+
+    slots = tri_padded.shape[0]
+    dev = tri_padded.device
+    # jnp.mean(axis=1) as XLA-CPU computes it, as in _build_device_median
+    centroid = (tri_padded[:, 0] + tri_padded[:, 1] + tri_padded[:, 2]) \
+        * (1.0 / 3.0)
+    real = torch.arange(slots, device=dev) < num_tris
+    lo = torch.amin(torch.where(real[:, None], centroid, INF), dim=0)
+    hi = torch.amax(torch.where(real[:, None], centroid, -INF), dim=0)
+    codes = torch.where(real, morton_codes(centroid, lo, hi), 0xFFFFFFFF)
+    order = torch.argsort(codes, stable=True)
+    perm = torch.where(real[order], order, -1).to(torch.int32)
+    return _layout_device(tri_padded[order], perm, slots // (S * G))
+
+
+def _median_split_perm(centroids: np.ndarray, gran_leaf: int,
+                       gran_block: int) -> np.ndarray:
+    """Equal-count recursive median split along the widest centroid axis
+    (stream_trace.py:321-355), host numpy: contiguous runs of
+    ``gran_leaf`` form clusters and runs of ``gran_block`` blocks."""
+    c = np.asarray(centroids)
+    n = c.shape[0]
+    perm = np.arange(n, dtype=np.int64)
+    stack = [(0, n)]
+    while stack:
+        lo, hi = stack.pop()
+        count = hi - lo
+        if count <= gran_leaf:
+            continue
+        gran = gran_block if count > gran_block else gran_leaf
+        seg = perm[lo:hi]
+        ext = c[seg].max(axis=0) - c[seg].min(axis=0)
+        axis = int(np.argmax(ext))
+        perm[lo:hi] = seg[np.argsort(c[seg, axis], kind="stable")]
+        left = max(gran, (count // 2 // gran) * gran)
+        if left >= count:
+            left = count - gran
+        stack.append((lo, lo + left))
+        stack.append((lo + left, hi))
+    return perm.astype(np.int32)
+
+
 def refit_stream_accel(accel: StreamAccel, tri_verts_new) -> StreamAccel:
     """Refit with moved vertices, keeping the build's ``perm`` (the TLAS
     updateOnly analog, stream_trace.py:396-405): one gather through perm
@@ -200,18 +249,35 @@ def refit_stream_accel(accel: StreamAccel, tri_verts_new) -> StreamAccel:
 
 def build_stream_accel(tri_verts, method: str = "median") -> StreamAccel:
     """Build over [T, 3, 3] world-space triangles on their device
-    (stream_trace.py:358-394).  Only the default device median build is
-    ported; it pads to a power of two >= one block."""
-    if method != "median":
-        raise NotImplementedError(
-            f"stream build method {method!r} is not ported (median only)")
+    (stream_trace.py:358-394).  ``"median"`` pads to a power of two >= one
+    block; ``"morton"`` and ``"median_host"`` pad to whole blocks, so
+    their block count need not be a power of two."""
     t = tri_verts.shape[0]
-    p = max(S * G, 1 << (t - 1).bit_length())
     tv = tri_verts.to(torch.float32)
-    if p > t:
-        tv = torch.cat([tv, torch.zeros((p - t, 3, 3), dtype=tv.dtype,
-                                        device=tv.device)], dim=0)
-    return _build_device_median(tv, t)
+    blk = S * G
+    if method == "median":
+        p = max(blk, 1 << (t - 1).bit_length())
+        if p > t:
+            tv = torch.cat([tv, torch.zeros((p - t, 3, 3), dtype=tv.dtype,
+                                            device=tv.device)], dim=0)
+        return _build_device_median(tv, t)
+    b = max(1, -(-t // blk))
+    pad = b * blk - t
+    if method == "morton":
+        tv = torch.cat([tv, torch.full((pad, 3, 3), INF, dtype=tv.dtype,
+                                       device=tv.device)], dim=0)
+        return _build_device_morton(tv, t)
+    if method != "median_host":
+        raise ValueError(f"stream build method {method!r}: median, morton "
+                         "or median_host")
+    host = tv.cpu().numpy()
+    order = _median_split_perm(host.mean(axis=1), G, blk)
+    perm = np.full(b * blk, -1, np.int32)
+    perm[:t] = order
+    sorted_tris = np.concatenate([host[order],
+                                  np.zeros((pad, 3, 3), np.float32)])
+    return _layout_device(torch.as_tensor(sorted_tris, device=tv.device),
+                          torch.as_tensor(perm, device=tv.device), b)
 
 
 # --------------------------- chunk worklists -----------------------------

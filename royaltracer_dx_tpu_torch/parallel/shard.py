@@ -42,7 +42,6 @@ from royaltracer_dx_tpu_torch.ops import restir
 from royaltracer_dx_tpu_torch.render import restir_renderer as rr
 from royaltracer_dx_tpu_torch.render.framebuffer import Framebuffer, accumulate
 from royaltracer_dx_tpu_torch.render.megakernel import trace_paths
-from royaltracer_dx_tpu_torch.render.restir_renderer import _wants_stream
 from royaltracer_dx_tpu_torch.utils import math3d as m3
 from royaltracer_dx_tpu_torch.utils import pvec as pv
 
@@ -313,9 +312,7 @@ class ShardedRestirRenderer:
         # the scene, its accel and materials once per distinct device
         first = self.devices[0]
         mats = scene.build_materials(device=first)
-        sa = scene.flatten(mats, build_stream=_wants_stream(scene, cfg),
-                           build_bvh=cfg.accel == "bvh",
-                           bvh_leaf_size=cfg.bvh_leaf_size, device=first)
+        sa = rr.bake(scene, mats, cfg, first)
         rr.check_world(sa, cfg)
         self._materials = {first: mats}
         self._scenes = {first: sa}

@@ -35,17 +35,13 @@ class DiOracle:
 
     def __init__(self, scene, camera: Camera, cfg: RenderConfig,
                  device=None):
-        restir.check_traversal(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         dev = self.device
         # the JAX package flattens without any accel (:41), so its oracle
-        # fails under traversal="stream" or "bvh"; the port builds what
-        # the megakernel Renderer would
-        sa = scene.flatten(scene.build_materials(device=dev),
-                           build_stream=rr._wants_stream(scene, cfg),
-                           build_bvh=cfg.accel == "bvh",
-                           bvh_leaf_size=cfg.bvh_leaf_size, device=dev)
+        # fails under traversal "stream", "bvh" or "cluster"; the port
+        # builds what the megakernel Renderer would
+        sa = rr.bake(scene, scene.build_materials(device=dev), cfg, dev)
         self.scene_arrays = sa
         ca = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
               for k, v in camera.matrices(cfg.width / cfg.height).items()}

@@ -19,14 +19,13 @@ import torch
 from royaltracer_dx_tpu_torch.camera import Camera, generate_rays
 from royaltracer_dx_tpu_torch.config import S_BIAS, RenderConfig
 from royaltracer_dx_tpu_torch.device import resolve_device
-from royaltracer_dx_tpu_torch.ops.restir import check_traversal
 from royaltracer_dx_tpu_torch.render import megakernel
 from royaltracer_dx_tpu_torch.render.framebuffer import (
     Framebuffer,
     accumulate,
     resolve,
 )
-from royaltracer_dx_tpu_torch.render.restir_renderer import _wants_stream
+from royaltracer_dx_tpu_torch.render.restir_renderer import bake
 from royaltracer_dx_tpu_torch.scene.scene import Scene
 from royaltracer_dx_tpu_torch.utils.rng import pixel_seed, tea_random
 
@@ -68,16 +67,12 @@ class Renderer:
 
     def __init__(self, scene: Scene, camera: Camera, cfg: RenderConfig,
                  device=None):
-        check_traversal(cfg)
         self.device = resolve_device(device)
         self.scene = scene
         self.camera = camera
         self.cfg = cfg
         self.materials = scene.build_materials(device=self.device)
-        self.scene_arrays = scene.flatten(
-            self.materials, build_stream=_wants_stream(scene, cfg),
-            build_bvh=cfg.accel == "bvh", bvh_leaf_size=cfg.bvh_leaf_size,
-            device=self.device)
+        self.scene_arrays = bake(scene, self.materials, cfg, self.device)
         self.fb = Framebuffer.create(cfg.num_pixels, self.device)
         self.frame = 0
         self._prev_view = torch.zeros((4, 4), dtype=_F, device=self.device)

@@ -926,7 +926,6 @@ def pass_timer(devices, t0: float, pass_times: dict):
 
 def check_config(scene: Scene, cfg: RenderConfig) -> None:
     """Raise for the options a ReSTIR renderer cannot take."""
-    restir.check_traversal(cfg)
     if cfg.gi_compaction not in ("auto", "on", "off"):
         raise ValueError(f"gi_compaction={cfg.gi_compaction!r}")
     if cfg.record_dtype not in _REC_DTYPES:
@@ -971,6 +970,19 @@ def _wants_stream(scene: Scene, cfg: RenderConfig) -> bool:
             and scene.num_triangles >= STREAM_AUTO_MIN_TRIS)
 
 
+def bake(scene: Scene, materials, cfg: RenderConfig, device):
+    """``Scene.flatten`` with the structures ``cfg``'s traversal reads
+    (:1066-1073): the LBVH under "bvh", the clusters of
+    ``cfg.cluster_group`` triangles under "cluster", the stream accel
+    where ``_wants_stream`` asks for it (and on the card unless one of the
+    other two is built)."""
+    return scene.flatten(materials, build_stream=_wants_stream(scene, cfg),
+                         build_bvh=cfg.accel == "bvh",
+                         bvh_leaf_size=cfg.bvh_leaf_size,
+                         build_clusters=cfg.accel == "cluster",
+                         cluster_group=cfg.cluster_group, device=device)
+
+
 class RestirRenderer:
     """Progressive ReSTIR DI+GI renderer over a Scene (:1059-1287).
 
@@ -985,10 +997,7 @@ class RestirRenderer:
         self.camera = camera
         self.cfg = cfg
         self.materials = scene.build_materials(device=self.device)
-        self.scene_arrays = scene.flatten(
-            self.materials, build_stream=_wants_stream(scene, cfg),
-            build_bvh=cfg.accel == "bvh", bvh_leaf_size=cfg.bvh_leaf_size,
-            device=self.device)
+        self.scene_arrays = bake(scene, self.materials, cfg, self.device)
         check_world(self.scene_arrays, cfg)
         n = cfg.num_pixels
         dev = self.device

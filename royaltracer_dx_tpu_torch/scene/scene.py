@@ -2,12 +2,14 @@
 royaltracer_dx_tpu/scene/scene.py:30-261).
 
 On the card ``flatten`` builds the stream accel unless it builds the LBVH
-(``build_bvh``): every trace there runs the stream kernels, or under
-traversal "bvh" the LBVH kernels (ops/restir.py).  With ``prev`` (the
-previous frame's arrays) ``flatten`` is the per-frame refit: the
-object-space arrays stay cached on the device, ``_world_bake`` re-bakes
-world space there and each built structure refits with the build's order,
-so no host work grows with the triangle count.
+(``build_bvh``) or the clusters (``build_clusters``): every trace there
+runs the stream kernels, or under traversal "bvh" / "cluster" the LBVH /
+cluster kernels (ops/restir.py).  With ``prev`` (the previous frame's
+arrays) ``flatten`` is the per-frame refit: the object-space arrays stay
+cached on the device, ``_world_bake`` re-bakes world space there, the LBVH
+and the stream accel refit with the build's order and the clusters are
+rebuilt, as in the JAX package, so no host work grows with the triangle
+count.
 """
 
 from __future__ import annotations
@@ -135,11 +137,16 @@ class Scene:
                 build_stream: bool = False, stream_method: str = "median",
                 device=None, prev: SceneArrays | None = None,
                 build_bvh: bool = False,
-                bvh_leaf_size: int = 4) -> SceneArrays:
+                bvh_leaf_size: int = 4, build_clusters: bool = False,
+                cluster_group: int = 128) -> SceneArrays:
         """Bake instances into a world-space triangle soup on ``device``
-        (scene.py:142-209).  ``build_bvh`` builds the LBVH; on CUDA the
-        stream accel is built unless the LBVH is.  With ``prev`` each of
-        its structures is refitted instead, on ``prev``'s device."""
+        (scene.py:142-209).  ``build_bvh`` builds the LBVH,
+        ``build_clusters`` the clusters of ``cluster_group`` triangles; on
+        CUDA the stream accel is built unless one of them is.  With
+        ``prev`` its LBVH and stream accel are refitted and its clusters
+        rebuilt with their group (scene.py:181-187), on ``prev``'s
+        device."""
+        from royaltracer_dx_tpu_torch.ops import cluster_traverse
         from royaltracer_dx_tpu_torch.ops.bvh import build_lbvh, refit_lbvh
         from royaltracer_dx_tpu_torch.ops.stream_trace import (
             build_stream_accel,
@@ -159,10 +166,18 @@ class Scene:
             bvh = refit_lbvh(prev.bvh, tri_verts)
         elif build_bvh:
             bvh = build_lbvh(tri_verts, leaf_size=bvh_leaf_size)
+        clusters = None
+        if prev is not None and prev.clusters is not None:
+            cluster_group = prev.clusters.group
+            build_clusters = True
+        if build_clusters:
+            clusters = cluster_traverse.build_clusters(tri_verts,
+                                                       group=cluster_group)
         stream = None
         if prev is not None and prev.stream is not None:
             stream = refit_stream_accel(prev.stream, tri_verts)
-        elif build_stream or (dev.type == "cuda" and bvh is None):
+        elif build_stream or (dev.type == "cuda" and bvh is None
+                              and clusters is None):
             stream = build_stream_accel(tri_verts, method=stream_method)
         return SceneArrays(
             tri_verts=tri_verts,
@@ -176,6 +191,7 @@ class Scene:
                 np.stack(self.prev_transforms), device=dev),
             bounds=world_bounds(tri_verts),
             bvh=bvh,
+            clusters=clusters,
             stream=stream,
         ).with_tri_table()
 

@@ -79,8 +79,8 @@ class LightTriangles:
 @dataclasses.dataclass
 class SceneArrays:
     """Device-side flattened scene (types.py:108-148).  ``bvh`` holds the
-    LBVH (traversal "bvh"), ``stream`` the StreamAccel; the cluster
-    structure of the JAX package is not ported yet."""
+    LBVH (traversal "bvh"), ``clusters`` the tile-clustered structure
+    (traversal "cluster"), ``stream`` the StreamAccel."""
 
     tri_verts: torch.Tensor      # [T, 3, 3] world space
     tri_normals: torch.Tensor    # [T, 3, 3] world space (0 = flat)
@@ -95,6 +95,7 @@ class SceneArrays:
     # from it without a device sync in the frame
     bounds: tuple
     bvh: object = None
+    clusters: object = None
     stream: object = None
     # verts(9) normals(9) mid obj as ONE [T, 20] row, ids as float VALUES
     # (types.py:127-145)

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from royaltracer_dx_tpu_torch.ops import cluster_traverse as tct
 from royaltracer_dx_tpu_torch.ops import stream_trace as tst
 from royaltracer_dx_tpu_torch.ops import traverse as ttr
 from royaltracer_dx_tpu_torch.scene import procedural as tproc
@@ -566,3 +567,102 @@ def test_cuda_bands_on_two_cards_match_one_card(bvh):
         imgs.append(r.radiance())
     assert np.isfinite(imgs[0]).all() and imgs[0].mean() > 0.0
     np.testing.assert_array_equal(imgs[0], imgs[1])
+
+
+# ------------------------- the cluster traversal --------------------------
+
+
+def _cluster_case(dev, tile, group, n, seed=5):
+    """Menger(2) clusters built on the card and n box-crossing rays in
+    tiles of ``tile``: every seventh lane dead, one NaN t_max (its tile
+    retires at once) and one NaN direction."""
+    rng = np.random.default_rng(seed)
+    v, idx = menger_sponge(2)
+    cl = tct.build_clusters(torch.as_tensor(v[idx].astype(np.float32),
+                                            device=dev), group=group)
+    o = rng.normal(size=(n, 3)).astype(np.float32)
+    o = o / np.linalg.norm(o, axis=1, keepdims=True) * 2.5 + 0.5
+    d = rng.uniform(0.1, 0.9, size=(n, 3)).astype(np.float32) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[11, 2] = np.nan
+    t_max = np.where(np.arange(n) % 7 == 0, -1.0, 1e4).astype(np.float32)
+    t_max[tile + 3] = np.nan
+    rows = tct.prepare_rays(torch.as_tensor(o, device=dev),
+                            torch.as_tensor(d, device=dev), 1e-4,
+                            torch.as_tensor(t_max, device=dev), tile)
+    return cl, rows
+
+
+@pytest.mark.gpu
+def test_cuda_cluster_build_matches_cpu():
+    """build_clusters on the card equals the CPU build (which the CPU
+    tests hold to the JAX build) bit for bit: the centroid is a true
+    division by 3 on both."""
+    dev = _card()
+    tris, _, _, _ = _scene_and_rays(16)
+    for group in (128, 32):
+        a = tct.build_clusters(torch.as_tensor(tris, device=dev), group)
+        b = tct.build_clusters(torch.as_tensor(tris), group)
+        for f in ("tri_planes", "tri_index", "aabb_lo", "aabb_hi"):
+            assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile,group", [(128, 128), (96, 128), (32, 64),
+                                        (1024, 16)])
+def test_cuda_cluster_kernels_match_plain(tile, group):
+    """cluster_mask, cluster_closest and cluster_any on the card against
+    their plain versions on the same inputs, on whole tiles of 400,003
+    rays (beyond one wave of CTAs at every tile size): the mask and entry
+    tables, t/u/v, triangle ids, occlusion and the per-tile stats (steps
+    and the triangle tests the answer needs) bit-equal, and each launch
+    counted once."""
+    dev = _card()
+    cl, rows = _cluster_case(dev, tile, group, 400003)
+    before = dict(tct.LAUNCHES)
+    mask, entry = tct.cluster_mask(rows, cl, tile)
+    wl, went, count = tct.worklists(mask, entry)
+    closest = tct.cluster_closest(rows, cl, wl, went, count, tile,
+                                  stats=True)
+    occ = tct.cluster_any(rows, cl, wl, count, tile, stats=True)
+    torch.cuda.synchronize()
+    assert {k: tct.LAUNCHES[k] - before[k] for k in before} == {
+        "cluster_mask": 1, "cluster_closest": 1, "cluster_any": 1}
+    p_mask, p_entry = tct._mask_plain(rows, cl, tile)
+    assert torch.equal(mask, p_mask) and torch.equal(entry, p_entry)
+    p_closest = tct._phase_b_plain(rows, cl, wl, went, count, tile, False)
+    p_occ = tct._phase_b_plain(rows, cl, wl, None, count, tile, True)
+    for k, p in zip(closest + occ, p_closest + p_occ):
+        assert torch.equal(k, p)
+    steps, tests = closest[2][:, 0], closest[2][:, 1]
+    assert int((steps < count).sum()) > 0 and int(occ[0].sum()) > 0
+    assert (tests <= steps * tile * group).all() and int(tests.sum()) > 0
+    assert int((closest[0][:, 0] < 1e30).sum()) > rows.shape[0] // 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["morton", "median_host"])
+@pytest.mark.parametrize("occlusion", [False, True])
+def test_cuda_stream_kernels_on_other_builds(method, occlusion):
+    """The stream kernels on a ``morton`` and a ``median_host`` accel of
+    three blocks (not a power of two) equal their plain version, and the
+    card's build equals the CPU's."""
+    dev = _card()
+    tris, o, d, t_max = _scene_and_rays(20000)
+    tris = tris[:6000]
+    ta = tst.build_stream_accel(torch.as_tensor(tris, device=dev), method)
+    cpu = tst.build_stream_accel(torch.as_tensor(tris), method)
+    assert ta.num_blocks == 3
+    for f in ("perm", "blk_tris", "blk_boxes", "top_lo", "top_hi"):
+        assert torch.equal(getattr(ta, f).cpu(), getattr(cpu, f)), f
+    rows, wl, went, cnt = tst.prepare_stream(
+        torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev), ta,
+        1e-4, torch.as_tensor(t_max, device=dev), 16)
+    kern = tst.stream_any if occlusion else tst.stream_closest
+    k_out = kern(rows, wl, went, cnt, ta.blk_tris, ta.blk_boxes)
+    torch.cuda.synchronize()
+    p_out = tst._stream_plain(rows, wl, went, cnt, ta.blk_tris, ta.blk_boxes,
+                              occlusion)
+    for k, p in zip(k_out, p_out):
+        assert torch.equal(k, p)
+    assert int((k_out[1] >= 0).sum()) > 1000

@@ -294,9 +294,15 @@ def test_entry_points_default_to_the_card():
 
 @pytest.mark.parametrize("kw", [dict(traversal="cluster")])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        tr.RestirRenderer(cornell_box(), Camera(eye=EYE, center=CENTER),
+    """traversal="cluster" refused until it was ported; now a ReSTIR
+    frame renders through it."""
+    r = tr.RestirRenderer(cornell_box(emission=18.0),
+                          Camera(eye=EYE, center=CENTER),
                           RenderConfig(width=8, height=8, **kw), device="cpu")
+    assert r.scene_arrays.clusters is not None
+    r.render()
+    img = r.radiance()
+    assert np.isfinite(img).all() and img.mean() > 0.0
 
 
 @pytest.mark.parametrize("kw", [dict(gi_compaction="on"),
@@ -334,6 +340,7 @@ def test_port_imports_no_jax():
         "import royaltracer_dx_tpu_torch.parallel.shard\n"
         "import royaltracer_dx_tpu_torch.ops.bvh\n"
         "import royaltracer_dx_tpu_torch.ops.traverse\n"
+        "import royaltracer_dx_tpu_torch.ops.cluster_traverse\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'royaltracer_dx_tpu'"
         " or m.startswith('royaltracer_dx_tpu.')]\n"
