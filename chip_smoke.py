@@ -104,17 +104,25 @@ Phases (any failure exits non-zero and prints no result line):
               1920x1080 camera rays and 2^20 random rays at the default
               128 rays a tile and 128 triangles a cluster, 100,003 random
               rays (the last tiles, padding included) and tiles of 96,
-              and sponza's 2,073,600-lane primary batch (each kernel
-              timed on the whole batch beside its bound); mask, entry,
-              t/u/v, triangle ids, occlusion and steps bit-equal, and the
-              card's cluster build equal to the CPU's; (b) the main path
+              cluster_study.pack_case's adversarial tiles (every packing
+              width of live rays from 0 to the tile, dead rays whose
+              t_max decides the bound, a NaN t_max, tiles without a live
+              ray that overlap boxes, exact-t ties between twin
+              triangles) at tiles and clusters of 128 / 128, 96 / 100,
+              128 / 1 and 1024 / 1024, and sponza's 2,073,600-lane
+              primary batch (each kernel timed on the whole batch beside
+              its bound); mask, entry, t/u/v, triangle ids, occlusion,
+              steps and tests bit-equal, and the card's cluster build
+              equal to the CPU's; (b) the main path
               of this slice: the 1920x1080 menger ReSTIR frame with
               traversal="cluster", one warm-up and 3 timed frames with
               every count set to 0 just before and read just after (each
               cluster kernel launched, no stream or LBVH kernel, no plain
-              version), then one frame with every launch timed and its
-              bound, and each kernel on its largest batch timed and held
-              against the plain version on 512 tiles; (c) bench.py's
+              version), then one frame with every launch timed beside its
+              bound, its no-FMA floor and the ms a step of the batch's
+              longest tile, and each kernel on its largest batch timed
+              and held against the plain version on 512 tiles; (c)
+              bench.py's
               cornell_megakernel row (512x512) through cli.main
               --renderer megakernel --traversal cluster, and a 1920x1080
               menger DiOracle frame under it; (d) the stream kernels on a
@@ -1794,6 +1802,8 @@ CLUSTER_KERNELS = {
 # whole tiles held against the plain versions (a lane sample would break
 # the tiles, and a tile's answer depends on all of its rays)
 CHECK_TILES = 512
+# cluster_study.pack_case's adversarial tiles: (tile, group, sponge level)
+PACK_CASES = ((128, 128, 2), (96, 100, 2), (128, 1, 1), (1024, 1024, 2))
 
 
 def all_launches() -> dict:
@@ -1923,11 +1933,13 @@ class ClusterLaunches:
                 lines.append(dict(r["work"], ms=r["start"].elapsed_time(
                     r["end"]), bound_ms=b["bound_ms"],
                     bound_by=b["bound_by"],
+                    nofma_floor_ms=b["nofma_floor_ms"],
                     dense_bound_ms=dense_bound(r["work"], self.rates),
                     stream_ms=r.get("stream_ms")))
             out[name] = dict(launches=len(lines), batches=lines,
                              **{k: sum(x[k] for x in lines) for k in (
-                                 "ms", "bound_ms", "dense_bound_ms")},
+                                 "ms", "bound_ms", "nofma_floor_ms",
+                                 "dense_bound_ms")},
                              stream_ms=sum(x["stream_ms"] or 0.0
                                            for x in lines))
         return out
@@ -2014,8 +2026,9 @@ def cluster_timed(label, rows, cl, tile, rates):
     print(f"  {label} ({rows.shape[0]} lanes, {cl.num_clusters} clusters of "
           f"{cl.group}, tiles of {tile}): "
           + "; ".join(f"{n} {v['ms']:.3f} ms, bound {v['bound_ms']:.3f} ms "
-                      f"({v['bound_by']}; dense {v['dense_bound_ms']:.3f})"
-                      for n, v in out.items())
+                      f"({v['bound_by']}; no-FMA floor "
+                      f"{v['nofma_floor_ms']:.3f}; dense "
+                      f"{v['dense_bound_ms']:.3f})" for n, v in out.items())
           + f"; closest steps a tile "
           f"{out['cluster_closest']['work']['steps_per_tile']:.2f} (max "
           f"{out['cluster_closest']['work']['max_steps']}), any "
@@ -2083,6 +2096,12 @@ def phase_cluster(out_dir, rates, mismatches):
         cluster_check(label, rows, cl, tile, mismatches,
                       None if at is None else n_t - min(CHECK_TILES, n_t))
     del sa, o, d, cl, cpu
+    from royaltracer_dx_tpu_torch.tools.cluster_study import pack_case
+
+    for tile, group, level in PACK_CASES:
+        rows, cl, _ = pack_case(dev, tile, group, level)
+        cluster_check(f"adversarial tiles (pack_case), tiles of {tile}, "
+                      f"clusters of {group}", rows, cl, tile, mismatches, 0)
     sa, o, d = camera_batch("sponza", 1920, 1080)
     rows = ct.prepare_rays(o, d, 1e-4, 1e4, 128)
     out["sponza_primary"] = dict(
@@ -2140,16 +2159,21 @@ def phase_cluster(out_dir, rates, mismatches):
                   f"{pk[name]['stream_ms']:.3f} ms")
         print(f"  {name}: {pk[name]['launches']} launches, "
               f"{pk[name]['ms']:.3f} ms a frame (bound "
-              f"{pk[name]['bound_ms']:.3f} ms; dense "
+              f"{pk[name]['bound_ms']:.3f} ms; no-FMA floor "
+              f"{pk[name]['nofma_floor_ms']:.3f}; dense "
               f"{pk[name]['dense_bound_ms']:.3f}){beside}; batches:",
               flush=True)
         for b in pk[name]["batches"]:
             extra = ("" if name == "cluster_mask" else
                      f", steps a tile {b['steps_per_tile']:.2f} (max "
-                     f"{b['max_steps']}, live tiles {b['live_tiles']} of "
-                     f"{b['tiles']}); stream kernel {b['stream_ms']:.3f} ms")
+                     f"{b['max_steps']}: "
+                     f"{b['ms'] * 1e3 / max(b['max_steps'], 1):.1f} us a "
+                     f"step of the longest tile; live tiles "
+                     f"{b['live_tiles']} of {b['tiles']}); stream kernel "
+                     f"{b['stream_ms']:.3f} ms")
             print(f"    {b['lanes']} lanes: {b['ms']:.3f} ms, bound "
-                  f"{b['bound_ms']:.3f} ms ({b['bound_by']}; dense "
+                  f"{b['bound_ms']:.3f} ms ({b['bound_by']}; no-FMA floor "
+                  f"{b['nofma_floor_ms']:.3f}; dense "
                   f"{b['dense_bound_ms']:.3f}){extra}", flush=True)
     entries = {}
     for name, (replaces, fn) in CLUSTER_KERNELS.items():
@@ -2164,17 +2188,19 @@ def phase_cluster(out_dir, rates, mismatches):
             replaces=replaces, replaces_fn=fn, launches=launches[name],
             ms=big["ms"], bound_ms=big["bound_ms"],
             bound_by=big["bound_by"], dense_bound_ms=big["dense_bound_ms"],
+            nofma_floor_ms=big["nofma_floor_ms"],
             bytes_ms=big["bytes_ms"],
             ops_ms=big["ops_ms"], shape_lanes=lanes,
             plain_ms=chk["plain_ms"][name], plain_lanes=chk["lanes"],
             slice_ms=chk["ms"][name], library_ms=None,
             frame_ms=pk[name]["ms"], frame_launches=pk[name]["launches"],
             frame_bound_ms=pk[name]["bound_ms"],
+            frame_nofma_floor_ms=pk[name]["nofma_floor_ms"],
             frame_dense_bound_ms=pk[name]["dense_bound_ms"],
             frame_stream_ms=pk[name]["stream_ms"],
             frame_batches=pk[name]["batches"],
             sponza_primary={k: out["sponza_primary"][name][k] for k in (
-                "ms", "bound_ms", "dense_bound_ms")},
+                "ms", "bound_ms", "nofma_floor_ms", "dense_bound_ms")},
             resources=ct.BUILD_INFO["resources"][name])
     out["menger_frame"] = dict(frame_ms=frame_ms, timed_frame_ms=timed_ms,
                                launches_per_frame=per_frame, peak_gib=peak,
@@ -2322,10 +2348,12 @@ def main() -> None:
               f"thread, {res['shared_bytes']} B of dynamic shared memory "
               "per block", flush=True)
     for name, res in ct.BUILD_INFO["resources"].items():
-        print(f"  {name}: {res['ctas_per_sm']} CTAs of 128 threads resident "
-              f"per SM at tiles and clusters of 128, {res['registers']} "
-              f"registers per thread, {res['shared_bytes']} B of shared "
-              "memory per CTA", flush=True)
+        print(f"  {name}: {res['ctas_per_sm']} CTAs of {res['threads']} "
+              f"threads resident per SM at tiles and clusters of 128, "
+              f"{res['registers']} registers per thread, "
+              f"{res['local_bytes']} B spilled per thread, "
+              f"{res['shared_bytes']} B of shared memory per CTA",
+              flush=True)
 
     # ---- the scene of the main path
     scene, camera = menger_scene()

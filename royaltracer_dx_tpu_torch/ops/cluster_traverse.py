@@ -30,10 +30,11 @@ the batch (the JAX package's tiles, so a tile's answer is JAX's):
 The retire rule is part of the answer: a computed slab entry can exceed a
 computed Moller-Trumbore t by an ulp (axis-aligned geometry), so which
 clusters get tested can decide a hit.  The JAX package's busiest-first
-tile permutation and shrinking-prefix schedule (:259-264, :336-382) serve
-only the TPU's lock step and change no tile's answer; they are not
-ported.  The tie order of the JAX sort (``lax.sort``, not stable) is
-replaced by cluster id.
+tile permutation (:306) changes no tile's answer; the kernels take the
+tiles in that order (``tile_order``) so that the longest walks start
+first.  Its shrinking-prefix schedule (:259-264, :336-382) serves only the
+TPU's lock step and is not ported.  The tie order of the JAX sort
+(``lax.sort``, not stable) is replaced by cluster id.
 
 ``cluster_mask`` (exact phase A), ``cluster_closest`` and ``cluster_any``
 (phase B) are the wrappers of the hand-written CUDA kernels in
@@ -67,8 +68,8 @@ from royaltracer_dx_tpu_torch.ops.traverse import (
 
 _DET_EPS = 1e-12
 _BIG = 3.0e38
-# the kernels' limits: one thread per ray of a tile, a [9, G] record and
-# its G ids staged in 48 KB of shared memory
+# the kernels' limits: a tile's rays and two [9, G] records with their G
+# ids staged in shared memory (up to 132 KB)
 MAX_TILE = 1024
 MAX_GROUP = 1024
 
@@ -222,6 +223,13 @@ def _mask_interval(rows: torch.Tensor, cl: Clusters, tile: int):
         tf = torch.minimum(tf, torch.where(unconstrained, big, p_max))
     mask = tn <= tf
     return mask, torch.where(mask, tn, INF)
+
+
+def tile_order(count: torch.Tensor) -> torch.Tensor:
+    """The tiles busiest first: [tiles] int64 tile indices by count,
+    descending, ties in tile order (a stable library sort; the JAX
+    package's ``perm = argsort(-count)``, cluster_traverse.py:306)."""
+    return torch.argsort(count, descending=True, stable=True)
 
 
 def worklists(mask: torch.Tensor, entry: torch.Tensor):
@@ -404,8 +412,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # the C interface of csrc/cluster_traverse.cu: ctypes argument types by name
 _SIGNATURES = {
     "cluster_mask": [_P] * 5 + [_I] * 3 + [_P],
-    "cluster_closest": [_P] * 9 + [_I] * 4 + [_P],
-    "cluster_any": [_P] * 6 + [_I] * 4 + [_P],
+    "cluster_closest": [_P] * 11 + [_I] * 4 + [_P],
+    "cluster_any": [_P] * 8 + [_I] * 4 + [_P],
     "cluster_resources": [_I, _I, ctypes.POINTER(_I)],
 }
 
@@ -421,14 +429,15 @@ def build_kernels():
         lib, info = build_library(_SRC, signatures=_SIGNATURES)
         res = {}
         for which, name in enumerate(LAUNCHES):
-            vals = (ctypes.c_int * 3)()
+            vals = (ctypes.c_int * 5)()
             # resources at the default 128 rays a tile and 128 triangles
             err = lib.cluster_resources(which, 128, vals)
             if err != 0:
                 raise RuntimeError(f"{name}: CUDA error {err} querying "
                                    "resources")
             res[name] = dict(ctas_per_sm=vals[0], registers=vals[1],
-                             shared_bytes=vals[2])
+                             threads=vals[2], shared_bytes=vals[3],
+                             local_bytes=vals[4])
         BUILD_INFO.update(info, resources=res)
         _LIB = lib
     return _LIB
@@ -475,6 +484,12 @@ def _launch(name, rows, *args):
     LAUNCHES[name] += 1
 
 
+def _schedule(count: torch.Tensor):
+    """A phase B launch's tile order and its zeroed position counter."""
+    return tile_order(count), torch.zeros(1, dtype=torch.int64,
+                                          device=count.device)
+
+
 def cluster_mask(rows: torch.Tensor, cl: Clusters, tile: int):
     """Exact phase A.  rows [N_pad, 8] f32 (origin, direction, t_min,
     t_max), N_pad a multiple of ``tile``.  Returns (mask [tiles, C]
@@ -514,9 +529,11 @@ def cluster_closest(rows: torch.Tensor, cl: Clusters, wl, went, count,
     out_stats = (torch.empty((tiles, 2), dtype=torch.int64, device=dev)
                  if stats else None)
     if tiles:
+        order, counter = _schedule(count)
         _launch("cluster_closest", rows, cl.tri_planes.data_ptr(),
                 cl.tri_index.data_ptr(), wl.data_ptr(), went.data_ptr(),
-                count.data_ptr(), tuv.data_ptr(), tri.data_ptr(),
+                count.data_ptr(), order.data_ptr(), counter.data_ptr(),
+                tuv.data_ptr(), tri.data_ptr(),
                 out_stats.data_ptr() if stats else None, tiles, tile, c,
                 cl.group)
     return tuv, tri, out_stats
@@ -538,8 +555,10 @@ def cluster_any(rows: torch.Tensor, cl: Clusters, wl, count, tile: int,
     out_stats = (torch.empty((tiles, 2), dtype=torch.int64, device=dev)
                  if stats else None)
     if tiles:
+        order, counter = _schedule(count)
         _launch("cluster_any", rows, cl.tri_planes.data_ptr(),
-                wl.data_ptr(), count.data_ptr(), occ.data_ptr(),
+                wl.data_ptr(), count.data_ptr(), order.data_ptr(),
+                counter.data_ptr(), occ.data_ptr(),
                 out_stats.data_ptr() if stats else None, tiles, tile, c,
                 cl.group)
     return occ, out_stats

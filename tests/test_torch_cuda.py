@@ -640,6 +640,58 @@ def test_cuda_cluster_kernels_match_plain(tile, group):
     assert int((closest[0][:, 0] < 1e30).sum()) > rows.shape[0] // 4
 
 
+def _bits(x):
+    """A tensor's bits: float32 as int32, so that -0.0 and NaN payloads
+    count."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile,group,level", [
+    (128, 128, 2), (128, 1, 1), (128, 100, 2), (128, 1024, 2), (96, 128, 2),
+    (1024, 128, 2), (1024, 1024, 2)])
+def test_cuda_cluster_packing_matches_plain(tile, group, level):
+    """cluster_closest and cluster_any on ``cluster_study.pack_case``'s
+    adversarial tiles (every packing width of live rays from 0 to the
+    tile, dead rays whose t_max decides the bound, a NaN t_max, tiles
+    without a live ray that overlap boxes, exact-t ties within and across
+    clusters) against ``_phase_b_plain``: t, u, v, tri, occlusion and the
+    per-tile steps and tests bit for bit, from the builds with and
+    without stats.  The tiles without a live ray count their steps
+    without testing: the ones whose dead rays reach 1e4 walk their whole
+    list, the NaN tiles none."""
+    from royaltracer_dx_tpu_torch.tools.cluster_study import pack_case
+
+    dev = _card()
+    rows, cl, kinds = pack_case(dev, tile, group, level)
+    mask, entry = tct.cluster_mask(rows, cl, tile)
+    wl, went, count = tct.worklists(mask, entry)
+    before = dict(tct.LAUNCHES)
+    closest = tct.cluster_closest(rows, cl, wl, went, count, tile,
+                                  stats=True)
+    occ = tct.cluster_any(rows, cl, wl, count, tile, stats=True)
+    fast = (tct.cluster_closest(rows, cl, wl, went, count, tile)[:2]
+            + tct.cluster_any(rows, cl, wl, count, tile)[:1])
+    torch.cuda.synchronize()
+    assert {k: tct.LAUNCHES[k] - before[k] for k in before} == {
+        "cluster_mask": 0, "cluster_closest": 2, "cluster_any": 2}
+    p_closest = tct._phase_b_plain(rows, cl, wl, went, count, tile, False)
+    p_occ = tct._phase_b_plain(rows, cl, wl, None, count, tile, True)
+    for k, p in zip(closest + occ, p_closest + p_occ):
+        assert torch.equal(_bits(k), _bits(p))
+    for k, p in zip(fast, p_closest[:2] + p_occ[:1]):
+        assert torch.equal(_bits(k), _bits(p))
+    kinds = np.asarray(kinds)
+    steps, tests = closest[2][:, 0].cpu(), closest[2][:, 1].cpu()
+    cnt = count.cpu()
+    over = torch.as_tensor(kinds == "dead_overlap")
+    assert (cnt[over] > 0).all() and torch.equal(steps[over], cnt[over])
+    assert (tests[over] == 0).all()
+    assert (steps[torch.as_tensor(kinds == "nan_dead")] == 0).all()
+    assert int((closest[0][:, 0] < 1e30).sum()) > 0
+    assert int(occ[0].sum()) > 0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("method", ["morton", "median_host"])
 @pytest.mark.parametrize("occlusion", [False, True])
