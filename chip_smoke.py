@@ -109,11 +109,17 @@ Phases (any failure exits non-zero and prints no result line):
               t_max decides the bound, a NaN t_max, tiles without a live
               ray that overlap boxes, exact-t ties between twin
               triangles) at tiles and clusters of 128 / 128, 96 / 100,
-              128 / 1 and 1024 / 1024, and sponza's 2,073,600-lane
-              primary batch (each kernel timed on the whole batch beside
-              its bound); mask, entry, t/u/v, triangle ids, occlusion,
-              steps and tests bit-equal, and the card's cluster build
-              equal to the CPU's; (b) the main path
+              128 / 1 and 1024 / 1024, cluster_mask alone on
+              cluster_study.mask_case's phase A tiles (every live count,
+              dead rays of every kind, equal bounds, -0.0 entries, zero,
+              tiny, huge and non-finite components, non-finite boxes) at
+              tiles of 128, 96 and 1024 against 38, 2,073, 1 and 38
+              boxes, and sponza's 2,073,600-lane primary batch (each
+              kernel timed on the whole batch beside its bound); mask,
+              entry, t/u/v, triangle ids, occlusion, steps and tests
+              bit-equal, and the card's cluster build equal to the CPU's;
+              cluster_mask's resources at sponza's and menger's shapes;
+              (b) the main path
               of this slice: the 1920x1080 menger ReSTIR frame with
               traversal="cluster", one warm-up and 3 timed frames with
               every count set to 0 just before and read just after (each
@@ -1804,6 +1810,14 @@ CLUSTER_KERNELS = {
 CHECK_TILES = 512
 # cluster_study.pack_case's adversarial tiles: (tile, group, sponge level)
 PACK_CASES = ((128, 128, 2), (96, 100, 2), (128, 1, 1), (1024, 1024, 2))
+# cluster_study.mask_case's adversarial phase A tiles: (tile, clusters)
+MASK_CASES = ((128, 38), (96, 2073), (1024, 1), (1024, 38))
+
+
+def entry_error(a, b) -> float:
+    """The largest difference of two entry tables (equal entries, the
+    infinite ones included, count 0)."""
+    return float(torch.where(a == b, 0.0, (a - b).abs()).max())
 
 
 def all_launches() -> dict:
@@ -1972,10 +1986,11 @@ def cluster_check(label, rows, cl, tile, mismatches, at=None):
     plain["cluster_any"], pa = cuda_ms(lambda: ct._phase_b_plain(
         sub, cl, wl, None, count, tile, True))
     bad = {
-        "cluster_mask": int((mask != p_mask).sum() + (entry != p_entry).sum()),
+        "cluster_mask": int((mask != p_mask).sum() + (
+            entry.view(torch.int32) != p_entry.view(torch.int32)).sum()),
         "cluster_closest": int(sum((a != b).sum() for a, b in zip(kc, pc))),
         "cluster_any": int(sum((a != b).sum() for a, b in zip(ka, pa)))}
-    errs = {"cluster_mask": float((entry - p_entry).abs().max()),
+    errs = {"cluster_mask": entry_error(entry, p_entry),
             "cluster_closest": float((kc[0] - pc[0]).abs().max()),
             "cluster_any": float((ka[0] - pa[0]).abs().max())}
     for name in CLUSTER_KERNELS:
@@ -1997,6 +2012,29 @@ def cluster_check(label, rows, cl, tile, mismatches, at=None):
     if hits == 0 or int(count.sum()) == 0:
         fail(f"{label}: the checked tiles do no work")
     return dict(lanes=int(sub.shape[0]), ms=ms, plain_ms=plain)
+
+
+def mask_check(label, rows, cl, tile, mismatches):
+    """cluster_mask against its plain version on a whole batch: mask and
+    entry bit for bit."""
+    from royaltracer_dx_tpu_torch.ops import cluster_traverse as ct
+
+    ms, (mask, entry) = cuda_ms(lambda: ct.cluster_mask(rows, cl, tile))
+    plain, (p_mask, p_entry) = cuda_ms(lambda: ct._mask_plain(rows, cl,
+                                                              tile))
+    bad = int((mask != p_mask).sum() + (
+        entry.view(torch.int32) != p_entry.view(torch.int32)).sum())
+    mismatches.setdefault("cluster_mask", []).append(dict(
+        case=label, lanes=int(rows.shape[0]), bad=bad,
+        max_abs_err=entry_error(entry, p_entry)))
+    if bad:
+        fail(f"{label}: cluster_mask differs from its plain version in {bad}"
+             " values")
+    live = int((rows[:, 6] <= rows[:, 7]).sum())
+    print(f"  {label}: {rows.shape[0] // tile} tiles of {tile} rays ({live} "
+          f"live) against {cl.num_clusters} boxes: mask and entry equal to "
+          f"the plain version bit for bit ({int(mask.sum())} overlaps); "
+          f"kernel / plain ms {ms:.3f} / {plain:.3f}", flush=True)
 
 
 def cluster_timed(label, rows, cl, tile, rates):
@@ -2102,8 +2140,16 @@ def phase_cluster(out_dir, rates, mismatches):
         rows, cl, _ = pack_case(dev, tile, group, level)
         cluster_check(f"adversarial tiles (pack_case), tiles of {tile}, "
                       f"clusters of {group}", rows, cl, tile, mismatches, 0)
+    from royaltracer_dx_tpu_torch.tools.cluster_study import mask_case
+
+    for tile, c in MASK_CASES:
+        rows, cl, _ = mask_case(dev, tile, c, max(1, 4096 // (tile + 4)))
+        mask_check(f"adversarial phase A tiles (mask_case), {c} clusters",
+                   rows, cl, tile, mismatches)
     sa, o, d = camera_batch("sponza", 1920, 1080)
     rows = ct.prepare_rays(o, d, 1e-4, 1e4, 128)
+    mask_res = {"sponza primary": ct.mask_resources(
+        128, sa.clusters.num_clusters)}
     out["sponza_primary"] = dict(
         triangles=sa.num_triangles, clusters=sa.clusters.num_clusters,
         **cluster_timed("sponza primary batch", rows, sa.clusters, 128,
@@ -2138,6 +2184,12 @@ def phase_cluster(out_dir, rates, mismatches):
         fail("menger cluster: fb.count is not 4 everywhere")
     per_frame = {k: v / frames for k, v in launches.items()}
     n_cl = rsa.clusters.num_clusters
+    mask_res["menger"] = ct.mask_resources(renderer.cfg.cluster_tile, n_cl)
+    for k, v in mask_res.items():
+        print(f"  cluster_mask at {k}'s shape: {v['ctas_per_sm']} CTAs of "
+              f"{v['threads']} threads resident per SM, {v['registers']} "
+              f"registers, {v['local_bytes']} B spilled, {v['shared_bytes']}"
+              " B of shared memory per CTA", flush=True)
     print(f"  menger 1920x1080 ReSTIR, traversal cluster ({n_cl} clusters): "
           f"frames {[round(x, 3) for x in frame_ms]} ms, launches per frame "
           f"{per_frame}, radiance mean {img.mean():.6f}, peak memory "
@@ -2201,7 +2253,9 @@ def phase_cluster(out_dir, rates, mismatches):
             frame_batches=pk[name]["batches"],
             sponza_primary={k: out["sponza_primary"][name][k] for k in (
                 "ms", "bound_ms", "nofma_floor_ms", "dense_bound_ms")},
-            resources=ct.BUILD_INFO["resources"][name])
+            resources=ct.BUILD_INFO["resources"][name],
+            **({"resources_at_batch": mask_res} if name == "cluster_mask"
+               else {}))
     out["menger_frame"] = dict(frame_ms=frame_ms, timed_frame_ms=timed_ms,
                                launches_per_frame=per_frame, peak_gib=peak,
                                radiance_mean=float(img.mean()))

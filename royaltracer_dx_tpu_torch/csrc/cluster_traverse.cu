@@ -18,14 +18,69 @@
 // consecutive rays of the batch, the JAX package's tile, because the
 // retire rule below makes a tile's answer depend on which rays share it.
 //
-// cluster_mask: one CTA per tile, one thread per ray.  Every ray
-// slab-tests every box (inv = |d| > 1e-12 ? 1/d : 3e38; t0 = (lo - o) *
-// inv, the running max / min against t_min / t_max, x then y then z,
-// NaN-propagating as jnp.minimum / jnp.maximum are); a warp ORs its
-// overlaps with a ballot and takes its least entry with shuffles, and
-// after each 32 clusters the CTA's warps are combined through shared
-// memory into mask [tiles, C] and entry [tiles, C] (INF where no ray
-// overlaps; -0.0 is stored as +0.0).
+// cluster_mask, what it computes: per (tile, cluster) whether any of the
+// tile's rays overlaps the cluster's box and the least slab entry of those
+// that do (inv = |d| > 1e-12 ? 1/d : 3e38; t0 = (lo - o) * inv, the
+// running max / min against t_min / t_max, x then y then z, NaN-propagating
+// as jnp.minimum / jnp.maximum are; overlap: tn <= tf), into mask [tiles,
+// C] and entry [tiles, C] (INF where no ray overlaps; -0.0 is stored as
+// +0.0).
+//
+// cluster_mask, how.  The first design (a CTA a tile, a thread a ray, a
+// ballot, a shuffle chain and per 32 boxes two barriers) ran every ray
+// through every box, though on the frame's bounce batches 90-98% of them
+// are dead, and reduced across the tile for every box.  This one rests on
+// four premises of the semantics (tests/test_torch_cluster_mask.py holds
+// them on the plain version):
+//   (a) a ray with !(t_min <= t_max), NaN included, overlaps no box: tn
+//       only rises from t_min, tf only falls from t_max, a NaN propagates.
+//       (t_min == t_max can overlap: the test is <=, not phase B's <.)
+//   (b) the OR and the least entry do not depend on the rays' order: no
+//       entry is NaN and -0.0 is folded, so any grouping gives the tables.
+//   (c) a ray with finite origin and direction (live, so its bounds are
+//       not NaN) against a finite box gives no NaN slab value (inv is
+//       finite and non-zero; an overflowing lo - o is an infinity times
+//       it), so fminf / fmaxf (one FMNMX each) give the tables of the
+//       NaN-propagating min / max: they differ only in the sign of a zero,
+//       which neither tn <= tf nor tn + 0.0 sees.
+//   (d) for such a ray and a box with lo <= hi, lo - o <= hi - o and so
+//       (lo - o) * inv <= (hi - o) * inv when inv > 0, >= when inv < 0
+//       (rounding is monotone): the sign of inv names each axis's entry
+//       plane, and min(t0, t1) / max(t0, t1) need no test.
+// So:
+//   * A persistent grid (every SM's resident CTAs of MASK_THREADS) takes
+//     units of tpc consecutive tiles: tpc = MASK_THREADS / C for small C
+//     (menger's 38 clusters: 6 tiles), one for C >= MASK_THREADS.  The
+//     rows are streamed: each CTA copies its next unit into the other of
+//     MASK_STAGES shared buffers with 16-byte cp.async while it compacts
+//     and tests the current one (the frame's largest batch is a 597 MB
+//     read with ~5% of its rays live).
+//   * Dead rays leave first (a).  Each live ray is written back over its
+//     row as (origin, t_min), (inv, t_max), inv computed once, and ranked
+//     in its tile's bucket (a match and one shared atomic per warp, tile
+//     and bucket): the 8 octants of inv's signs for the finite rays (c,
+//     d), then the others; then it moves into the tile's list, bucket
+//     after bucket (b allows any order).  A tile with no live ray only
+//     writes its row of 0 / INF.
+//   * The reduction is transposed: a thread owns a (tile, cluster) pair
+//     and runs over the tile's list (all of its tile's threads read the
+//     same ray: a broadcast).  Per octant it loads the box's near and far
+//     planes once and tests with fmaxf / fminf alone, 20 floating-point
+//     instructions against 26 with min(t0, t1) and max(t0, t1) (24 in
+//     cluster_work's count); the other rays, and every ray when the box is
+//     not finite or has lo > hi on an axis, take the exact test.  It keeps
+//     the least overlapping entry (NaN while none, which fminf drops) in a
+//     register and writes mask[t, c] and entry[t, c] once, coalesced along
+//     c.  No ballot, shuffle or barrier per box.  For C > MASK_THREADS a
+//     thread takes clusters c, c + MASK_THREADS, ..., MASK_BOXES of them a
+//     ray load, and that build is given more registers (MIN_CTAS).
+// What bounds it (tools/cluster_study.py on an H100): dense batches are
+// issue-bound, 21 instructions a test at MASK_BOXES boxes a ray load and
+// 24.5 at one (sponza's primary batch at 1.2x its no-FMA floor; menger's,
+// whose tiles of 38 threads straddle warps and whose compaction and
+// barriers take a quarter of the time, at 2.5x); sparse ones by the
+// stream of rows (the frame's 18.7M-lane batch at 1.3x its bytes bound,
+// its staging alone at 1.1x).
 //
 // The wrapper then sorts each tile's row by (entry, cluster id) with a
 // stable library sort (the JAX package's lax.sort), giving the worklist wl,
@@ -98,9 +153,10 @@
 //
 // Numerics: built with -fmad=false and IEEE division and written in the
 // JAX operation order, so the plain versions repeat it bit for bit.
-// Supported: tile <= 1024 rays and G <= 1024 (two records of 40 KB and
-// the compacted rays: up to 132 KB of dynamic shared memory); the
-// wrappers raise beyond.
+// Supported: tile <= 1024 rays and G <= 1024 (phase B: two records of 40
+// KB and the compacted rays, up to 132 KB of dynamic shared memory; phase
+// A: MASK_STAGES + 1 units of up to 1024 rays, 128 KB); the wrappers raise
+// beyond.
 
 #include <cuda_runtime.h>
 
@@ -112,7 +168,7 @@ constexpr float INF = 1e30f;
 constexpr float BIG = 3.0e38f;
 constexpr float DET_EPS = 1e-12f;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int MAX_THREADS = 1024;
+constexpr int MAX_SIZE = 1024;  // the wrappers' MAX_TILE and MAX_GROUP
 
 // NaN-propagating min/max, the semantics of torch.minimum/maximum and of
 // XLA's min/max (fminf/fmaxf would drop a NaN operand).
@@ -138,66 +194,279 @@ __device__ __forceinline__ Ray no_ray() {
   return {0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f, 0.0f, -1.0f};
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ------------------------------ phase A ---------------------------------
+
+constexpr int MASK_THREADS = 256;  // threads of a phase A CTA
+constexpr int MASK_STAGES = 2;     // units of rows staged: in flight + read
+constexpr int MASK_BOXES = 4;      // boxes a ray load when C > MASK_THREADS
+constexpr int MASK_TPC = 32;       // the most tiles a unit
+// resident CTAs the register budget aims at, C <= / > MASK_THREADS: one box
+// a ray load (menger) ran 5% faster a frame at 3 (80 registers) than at 2,
+// four (sponza) 6% faster at 2 (tools/cluster_study.py --set, on an H100)
+constexpr int MASK_MIN_CTAS_SMALL = 3;
+constexpr int MASK_MIN_CTAS_LARGE = 2;
+
+// A unit: tpc consecutive tiles a CTA takes at once, w threads a tile
+// (one a cluster, or MASK_THREADS taking every w-th cluster).
+struct MaskShape {
+  int w, tpc, rays;
+};
+
+__host__ __device__ __forceinline__ MaskShape mask_shape(int tile, int c) {
+  const int w = c < MASK_THREADS ? c : MASK_THREADS;
+  int tpc = MASK_THREADS / w;
+  tpc = tpc < MAX_SIZE / tile ? tpc : MAX_SIZE / tile;
+  tpc = tpc < MASK_TPC ? tpc : MASK_TPC;
+  return {w, tpc, tpc * tile};
+}
+
+// Dynamic shared memory of a phase A CTA: MASK_STAGES units of rows and
+// the unit's compacted live rays, 32 bytes a ray each.
+__host__ __device__ __forceinline__ size_t mask_bytes(int tile, int c) {
+  return (size_t)(MASK_STAGES + 1) * mask_shape(tile, c).rays * 32;
+}
 
 __device__ __forceinline__ float slab_inv(float d) {
   return (fabsf(d) > 1e-12f) ? 1.0f / d : BIG;
 }
 
-__global__ void __launch_bounds__(MAX_THREADS)
+// Start copying unit u's rows (its tiles; the last unit may hold fewer)
+// into dst, 16 bytes a copy; the caller commits the group.
+__device__ __forceinline__ void stage_unit(const float* __restrict__ rays,
+                                           int u, int tiles, int tile,
+                                           const MaskShape& sh, float4* dst) {
+  const int t0 = u * sh.tpc;
+  const int n = min(sh.tpc, tiles - t0) * tile * 2;
+  const float4* src =
+      reinterpret_cast<const float4*>(rays) + (size_t)t0 * tile * 2;
+  for (int i = threadIdx.x; i < n; i += MASK_THREADS) cp_async16(dst + i, src + i);
+}
+
+// Cluster boxes cl + j w (j < NB): the planes a slab test of an octant's
+// rays meets first (nx) and last (fx) on each axis; octant 0 gives lo, hi.
+template <int NB>
+__device__ __forceinline__ void load_planes(const float* __restrict__ lo,
+                                            const float* __restrict__ hi,
+                                            int cl, int w, int oct,
+                                            float (&nx)[NB][3],
+                                            float (&fx)[NB][3]) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const bool neg = (oct >> a) & 1;
+      const size_t k = (size_t)(cl + j * w) * 3 + a;
+      nx[j][a] = __ldg((neg ? hi : lo) + k);
+      fx[j][a] = __ldg((neg ? lo : hi) + k);
+    }
+  }
+}
+
+// Ray r of a tile's list, (origin, t_min) and (inv, t_max), against NB
+// boxes: m[j] keeps the least entry of the overlaps (NaN while none, which
+// fminf drops; an overlap's tn is never NaN).  EXACT: nx, fx are lo, hi
+// and the NaN-propagating min / max of the plain version order each slab;
+// else they are the ray's octant's near and far planes (premise d), which
+// fmaxf / fminf fold in (premise c).
+template <int NB, bool EXACT>
+__device__ __forceinline__ void slab_test(const float4* rl, int r,
+                                          const float (&nx)[NB][3],
+                                          const float (&fx)[NB][3],
+                                          float (&m)[NB]) {
+  const float4 p = rl[2 * r], q = rl[2 * r + 1];
+  const float o[3] = {p.x, p.y, p.z}, inv[3] = {q.x, q.y, q.z};
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    float tn = p.w, tf = q.w;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float t0 = (nx[j][a] - o[a]) * inv[a];
+      const float t1 = (fx[j][a] - o[a]) * inv[a];
+      if (EXACT) {
+        tn = max_nan(tn, min_nan(t0, t1));
+        tf = min_nan(tf, max_nan(t0, t1));
+      } else {
+        tn = fmaxf(tn, t0);
+        tf = fminf(tf, t1);
+      }
+    }
+    if (tn <= tf) m[j] = fminf(m[j], tn);
+  }
+}
+
+// Clusters cl + j w (j < NB) against a tile's listed rays, whose bucket
+// counts are cnt[0..8] (the 8 octants of the finite rays, then the rest);
+// writes their flags and entries.  A box that is not finite or has lo > hi
+// on an axis takes the exact test for every ray.
+template <int NB>
+__device__ __forceinline__ void mask_boxes(const float4* rl, const int* cnt,
+                                           int live,
+                                           const float* __restrict__ lo,
+                                           const float* __restrict__ hi,
+                                           int cl, int w,
+                                           unsigned char* __restrict__ mrow,
+                                           float* __restrict__ erow) {
+  float nx[NB][3], fx[NB][3], m[NB];
+  load_planes<NB>(lo, hi, cl, w, 0, nx, fx);
+  bool fast = true;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      fast = fast && isfinite(nx[j][a]) && isfinite(fx[j][a]) &&
+             nx[j][a] <= fx[j][a];
+    m[j] = __int_as_float(0x7fc00000);
+  }
+  int r = 0;
+  if (fast) {
+    for (int oct = 0; oct < 8; ++oct) {
+      const int end = r + cnt[oct];
+      if (r == end) continue;
+      load_planes<NB>(lo, hi, cl, w, oct, nx, fx);
+#pragma unroll 2
+      for (; r < end; ++r) slab_test<NB, false>(rl, r, nx, fx, m);
+    }
+    if (r < live) load_planes<NB>(lo, hi, cl, w, 0, nx, fx);
+  }
+  for (; r < live; ++r) slab_test<NB, true>(rl, r, nx, fx, m);
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const bool any = m[j] == m[j];
+    mrow[cl + j * w] = any ? 1 : 0;
+    erow[cl + j * w] = any ? m[j] + 0.0f : INF;  // + 0.0: -0.0 as +0.0
+  }
+}
+
+constexpr int MASK_BUCKETS = 9;  // a tile's list: 8 octants, then the rest
+// rays a thread compacts, at most
+constexpr int MASK_RPT = (MAX_SIZE + MASK_THREADS - 1) / MASK_THREADS;
+
+template <int MIN_CTAS>
+__global__ void __launch_bounds__(MASK_THREADS, MIN_CTAS)
 mask_kernel(const float* __restrict__ rays, const float* __restrict__ lo,
             const float* __restrict__ hi, unsigned char* __restrict__ mask,
-            float* __restrict__ entry, int tile, int c) {
-  __shared__ unsigned s_any[32][33];
-  __shared__ float s_min[32][33];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nw = blockDim.x >> 5;
-  const size_t t = blockIdx.x;
-  const bool real = tid < tile;
-  const Ray r = real ? load_ray(rays, t * tile + tid) : no_ray();
-  const float ix = slab_inv(r.dx), iy = slab_inv(r.dy), iz = slab_inv(r.dz);
-  for (int c0 = 0; c0 < c; c0 += 32) {
-    const int nb = min(32, c - c0);
-    for (int j = 0; j < nb; ++j) {
-      const float* bl = lo + (size_t)(c0 + j) * 3;
-      const float* bh = hi + (size_t)(c0 + j) * 3;
-      float tn = r.tmin, tf = r.tmax;
-      float t0 = (__ldg(bl + 0) - r.ox) * ix;
-      float t1 = (__ldg(bh + 0) - r.ox) * ix;
-      tn = max_nan(tn, min_nan(t0, t1));
-      tf = min_nan(tf, max_nan(t0, t1));
-      t0 = (__ldg(bl + 1) - r.oy) * iy;
-      t1 = (__ldg(bh + 1) - r.oy) * iy;
-      tn = max_nan(tn, min_nan(t0, t1));
-      tf = min_nan(tf, max_nan(t0, t1));
-      t0 = (__ldg(bl + 2) - r.oz) * iz;
-      t1 = (__ldg(bh + 2) - r.oz) * iz;
-      tn = max_nan(tn, min_nan(t0, t1));
-      tf = min_nan(tf, max_nan(t0, t1));
-      const bool ov = real && (tn <= tf);
-      float e = ov ? tn + 0.0f : INF;  // + 0.0 stores -0.0 as +0.0
-      const unsigned any = __ballot_sync(FULL, ov);
-      for (int s = 16; s > 0; s >>= 1) {
-        e = fminf(e, __shfl_xor_sync(FULL, e, s));  // no NaN, no -0.0
-      }
-      if (lane == 0) {
-        s_any[warp][j] = any;
-        s_min[warp][j] = e;
-      }
-    }
-    __syncthreads();
-    if (tid < nb) {
-      unsigned a = 0u;
-      float m = INF;
-      for (int w = 0; w < nw; ++w) {
-        a |= s_any[w][tid];
-        m = fminf(m, s_min[w][tid]);
-      }
-      mask[t * c + c0 + tid] = a ? 1 : 0;
-      entry[t * c + c0 + tid] = m;
-    }
-    __syncthreads();
+            float* __restrict__ entry, int tiles, int tile, int c) {
+  extern __shared__ __align__(16) float smem[];
+  // per parity and tile of the unit, the rays of each bucket
+  __shared__ int s_cnt[2][MASK_BUCKETS * MASK_TPC];
+  const MaskShape sh = mask_shape(tile, c);
+  float4* ring = reinterpret_cast<float4*>(smem);  // [STAGES][rays][2]
+  float4* list = ring + (size_t)MASK_STAGES * sh.rays * 2;  // [rays][2]
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int units = (tiles + sh.tpc - 1) / sh.tpc;
+  for (int k = 0; k < MASK_STAGES; ++k) {
+    const int u = blockIdx.x + k * gridDim.x;
+    if (u < units)
+      stage_unit(rays, u, tiles, tile, sh, ring + (size_t)k * sh.rays * 2);
+    cp_async_commit();
   }
+  for (int i = tid; i < 2 * MASK_BUCKETS * MASK_TPC; i += MASK_THREADS)
+    (&s_cnt[0][0])[i] = 0;
+  int it = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++it) {
+    float4* st = ring + (size_t)(it % MASK_STAGES) * sh.rays * 2;
+    int* cnt = s_cnt[it & 1];
+    cp_async_wait<MASK_STAGES - 1>();
+    // unit u's rows have landed; the last unit's tests are done with the
+    // list, and this unit's counts were zeroed
+    __syncthreads();
+    const int t0 = u * sh.tpc, nt = min(sh.tpc, tiles - t0);
+    const int nr = nt * tile;
+    // the live rays (premise a): each one's tile bucket and its rank there
+    // (premise b: any order); its (origin, t_min), (inv, t_max) go back
+    // over its row
+    int key[MASK_RPT], rank[MASK_RPT];
+#pragma unroll
+    for (int j = 0; j < MASK_RPT; ++j) {
+      key[j] = -1;
+      if (j * MASK_THREADS >= sh.rays) continue;  // uniform
+      const int i = j * MASK_THREADS + tid;
+      if (i < nr) {
+        const float4 a = st[2 * i], b = st[2 * i + 1];
+        if (b.z <= b.w) {
+          const float4 q = make_float4(slab_inv(a.w), slab_inv(b.x),
+                                       slab_inv(b.y), b.w);
+          st[2 * i] = make_float4(a.x, a.y, a.z, b.z);
+          st[2 * i + 1] = q;
+          const bool fin = isfinite(a.x) && isfinite(a.y) &&
+                           isfinite(a.z) && isfinite(a.w) &&
+                           isfinite(b.x) && isfinite(b.y);
+          const int oct = (q.x < 0.0f ? 1 : 0) | (q.y < 0.0f ? 2 : 0) |
+                          (q.z < 0.0f ? 4 : 0);
+          key[j] = MASK_BUCKETS * (i / tile) + (fin ? oct : 8);
+        }
+      }
+      const unsigned peers = __match_any_sync(FULL, key[j]);
+      const int leader = __ffs(peers) - 1;
+      int base = 0;
+      if (key[j] >= 0 && lane == leader)
+        base = atomicAdd(cnt + key[j], __popc(peers));
+      rank[j] = __shfl_sync(FULL, base, leader) +
+                __popc(peers & ((1u << lane) - 1u));
+    }
+    __syncthreads();
+    // into the list: per tile, bucket after bucket
+#pragma unroll
+    for (int j = 0; j < MASK_RPT; ++j) {
+      if (key[j] < 0) continue;
+      const int i = j * MASK_THREADS + tid;
+      const int g = key[j] / MASK_BUCKETS, bk = key[j] - g * MASK_BUCKETS;
+      int slot = g * tile + rank[j];
+      for (int k = 0; k < bk; ++k) slot += cnt[g * MASK_BUCKETS + k];
+      list[2 * slot] = st[2 * i];
+      list[2 * slot + 1] = st[2 * i + 1];
+    }
+    __syncthreads();
+    // the stage is read: this CTA's unit MASK_STAGES on goes into it
+    const int un = u + MASK_STAGES * gridDim.x;
+    if (un < units) stage_unit(rays, un, tiles, tile, sh, st);
+    cp_async_commit();
+    for (int i = tid; i < MASK_BUCKETS * MASK_TPC; i += MASK_THREADS)
+      s_cnt[(it & 1) ^ 1][i] = 0;  // the next unit's (its tests are done)
+    const int g = tid / sh.w;
+    if (g < nt) {
+      const int* ct = cnt + g * MASK_BUCKETS;
+      int live = 0;
+      for (int k = 0; k < MASK_BUCKETS; ++k) live += ct[k];
+      const float4* rl = list + (size_t)g * tile * 2;
+      const size_t row = (size_t)(t0 + g) * c;
+      int cl = tid - g * sh.w;
+      if (live == 0) {
+        for (; cl < c; cl += sh.w) {
+          mask[row + cl] = 0;
+          entry[row + cl] = INF;
+        }
+      } else {
+        for (; cl + (MASK_BOXES - 1) * sh.w < c; cl += MASK_BOXES * sh.w)
+          mask_boxes<MASK_BOXES>(rl, ct, live, lo, hi, cl, sh.w, mask + row,
+                                 entry + row);
+        for (; cl < c; cl += sh.w)
+          mask_boxes<1>(rl, ct, live, lo, hi, cl, sh.w, mask + row,
+                        entry + row);
+      }
+    }
+  }
+  cp_async_wait<0>();
 }
 
 // ------------------------------ phase B ---------------------------------
@@ -211,7 +480,6 @@ constexpr int PB_WARPS = PB_THREADS / 32;
 constexpr int CLOSEST_MIN_CTAS = 3;
 constexpr int ANY_MIN_CTAS = 4;
 constexpr int ZERO_CHUNK = 8;    // count-0 tiles taken at a time
-constexpr int MAX_SIZE = 1024;   // the wrappers' MAX_TILE and MAX_GROUP
 
 __device__ __forceinline__ float neg_inf() {
   return __int_as_float(0xff800000u);
@@ -261,26 +529,6 @@ __host__ __device__ __forceinline__ size_t rec_stride(bool ids, int g) {
 __host__ __device__ __forceinline__ size_t phase_b_floats(bool closest,
                                                           int tile, int g) {
   return 2 * rec_stride(closest, g) + (size_t)tile * (closest ? 13 : 11);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Start copying cluster cid's [9, G] record (and, for closest, its ids)
@@ -742,8 +990,6 @@ any_kernel(const float* __restrict__ rays, const float* __restrict__ planes,
   }
 }
 
-int threads_of(int tile) { return (tile + 31) / 32 * 32; }
-
 // The persistent grid: every SM's resident CTAs, no more than the tiles.
 // The shared-memory attribute (set to the kernel's largest size), the SM
 // count and the occupancy query run once per (device, kernel, shared
@@ -760,7 +1006,8 @@ int g_n_grids = 0;
 std::mutex g_grid_mu;
 
 template <typename K>
-int resident_ctas(K kernel, size_t smem, size_t max_smem, int* ctas_out) {
+int resident_ctas(K kernel, int threads, size_t smem, size_t max_smem,
+                  int* ctas_out) {
   int dev = 0, ctas = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -780,7 +1027,7 @@ int resident_ctas(K kernel, size_t smem, size_t max_smem, int* ctas_out) {
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                          PB_THREADS, smem);
+                                                          threads, smem);
     if (err != cudaSuccess) return (int)err;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     ctas = sms * per_sm;
@@ -797,6 +1044,30 @@ size_t phase_b_bytes(bool closest, int tile, int g) {
 
 bool aligned16(const void* p) { return ((size_t)p & 15) == 0; }
 
+// The phase A kernel's build for c clusters.
+using MaskKernel = void (*)(const float*, const float*, const float*,
+                            unsigned char*, float*, int, int, int);
+MaskKernel mask_fn(int c) {
+  return c > MASK_THREADS ? mask_kernel<MASK_MIN_CTAS_LARGE>
+                          : mask_kernel<MASK_MIN_CTAS_SMALL>;
+}
+
+int kernel_resources(const void* fn, int threads, size_t dyn, size_t max_dyn,
+                     int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)max_dyn);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fn, threads,
+                                                      dyn);
+  out[1] = attr.numRegs;
+  out[2] = threads;
+  out[3] = (int)(attr.sharedSizeBytes + dyn);
+  out[4] = (int)attr.localSizeBytes;
+  return (int)err;
+}
+
 }  // namespace
 
 extern "C" {
@@ -804,10 +1075,18 @@ extern "C" {
 int cluster_mask(const float* rays, const float* aabb_lo,
                  const float* aabb_hi, unsigned char* mask, float* entry,
                  int tiles, int tile, int c, void* stream) {
-  if (tiles > 0 && c > 0) {
-    mask_kernel<<<tiles, threads_of(tile), 0, (cudaStream_t)stream>>>(
-        rays, aabb_lo, aabb_hi, mask, entry, tile, c);
-  }
+  if (tiles <= 0 || c <= 0) return 0;
+  if (tile < 1 || tile > MAX_SIZE) return (int)cudaErrorInvalidValue;
+  const size_t smem = mask_bytes(tile, c);
+  const int tpc = mask_shape(tile, c).tpc;
+  int ctas = 0;
+  const auto fn = mask_fn(c);
+  const int err = resident_ctas(fn, MASK_THREADS, smem,
+                                mask_bytes(MAX_SIZE, 1), &ctas);
+  if (err) return err;
+  fn<<<min(ctas, (tiles + tpc - 1) / tpc), MASK_THREADS, smem,
+       (cudaStream_t)stream>>>(rays, aabb_lo, aabb_hi, mask, entry, tiles,
+                               tile, c);
   return (int)cudaGetLastError();
 }
 
@@ -827,7 +1106,7 @@ int cluster_closest(const float* rays, const float* planes,
   const size_t max_smem = phase_b_bytes(true, MAX_SIZE, MAX_SIZE);
   const auto fn = out_stats ? closest_kernel<true> : closest_kernel<false>;
   int ctas = 0;
-  const int err = resident_ctas(fn, smem, max_smem, &ctas);
+  const int err = resident_ctas(fn, PB_THREADS, smem, max_smem, &ctas);
   if (err) return err;
   fn<<<min(ctas, tiles), PB_THREADS, smem, (cudaStream_t)stream>>>(
       rays, planes, tri_index, wl, went, count, order, counter, out_tuv,
@@ -847,7 +1126,7 @@ int cluster_any(const float* rays, const float* planes, const int* wl,
   const size_t max_smem = phase_b_bytes(false, MAX_SIZE, MAX_SIZE);
   const auto fn = out_stats ? any_kernel<true> : any_kernel<false>;
   int ctas = 0;
-  const int err = resident_ctas(fn, smem, max_smem, &ctas);
+  const int err = resident_ctas(fn, PB_THREADS, smem, max_smem, &ctas);
   if (err) return err;
   fn<<<min(ctas, tiles), PB_THREADS, smem, (cudaStream_t)stream>>>(
       rays, planes, wl, count, order, counter, out_occ, out_stats, tiles,
@@ -857,30 +1136,22 @@ int cluster_any(const float* rays, const float* planes, const int* wl,
 
 // out[0..4]: resident CTAs per SM, registers per thread, threads per CTA,
 // shared memory per CTA (static + dynamic) and local (spilled) bytes per
-// thread of kernel `which` (0 mask, 1 closest, 2 any; the builds without
-// stats) at `size` rays a tile and triangles a cluster.
+// thread of the phase A kernel at `tile` rays a tile and `c` clusters.
+int cluster_mask_resources(int tile, int c, int* out) {
+  if (tile < 1 || tile > MAX_SIZE || c < 1) return (int)cudaErrorInvalidValue;
+  return kernel_resources((const void*)mask_fn(c), MASK_THREADS,
+                          mask_bytes(tile, c), mask_bytes(MAX_SIZE, 1), out);
+}
+
+// The same for kernel `which` (0 mask, 1 closest, 2 any; the builds
+// without stats) at `size` rays a tile and triangles (mask: clusters) a
+// cluster.
 int cluster_resources(int which, int size, int* out) {
-  const void* fn = which == 0   ? (const void*)mask_kernel
-                   : which == 1 ? (const void*)closest_kernel<false>
-                                : (const void*)any_kernel<false>;
-  const int threads = which == 0 ? threads_of(size) : PB_THREADS;
-  const size_t dyn = which == 0 ? 0 : phase_b_bytes(which == 1, size, size);
-  cudaError_t err = cudaSuccess;
-  if (which != 0) {
-    err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)phase_b_bytes(which == 1, MAX_SIZE, MAX_SIZE));
-  }
-  cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fn, threads,
-                                                      dyn);
-  out[1] = attr.numRegs;
-  out[2] = threads;
-  out[3] = (int)(attr.sharedSizeBytes + dyn);
-  out[4] = (int)attr.localSizeBytes;
-  return (int)err;
+  if (which == 0) return cluster_mask_resources(size, size, out);
+  const void* fn = which == 1 ? (const void*)closest_kernel<false>
+                              : (const void*)any_kernel<false>;
+  return kernel_resources(fn, PB_THREADS, phase_b_bytes(which == 1, size, size),
+                          phase_b_bytes(which == 1, MAX_SIZE, MAX_SIZE), out);
 }
 
 }  // extern "C"

@@ -41,7 +41,23 @@ TPU's lock step and is not ported.  The tie order of the JAX sort
 ``csrc/cluster_traverse.cu``: for CUDA tensors they launch the kernel (or
 raise), for CPU tensors they run the plain versions here, which repeat
 the JAX arithmetic in the kernels' operation order.  The interval mask
-and the worklist sort are torch ops on both.  ``cluster_work`` turns a
+and the worklist sort are torch ops on both.
+
+The phase A kernel gives ``_mask_plain``'s tables bit for bit while it
+tests far less than every ray against every box, on four premises of the
+semantics (tests/test_torch_cluster_mask.py holds them on the plain
+version): (a) a ray with !(t_min <= t_max), NaN included, overlaps no
+box, so it leaves before any test (a ray with t_min == t_max can
+overlap); (b) the OR and the least entry do not depend on the order of
+a tile's rays (no entry is NaN, -0.0 is folded), so the kernel lists a
+tile's live rays in any order and a thread owns a (tile, cluster) pair,
+running over them; (c) a ray with finite origin and direction against a
+finite box makes no NaN slab value, so fminf / fmaxf give the tables of
+the NaN-propagating min / max; (d) against a box with lo <= hi the
+slab's entry plane is lo or hi by the sign of the ray's inv alone
+(rounding is monotone), so the rays are listed by direction octant and
+each octant's near and far planes are picked once.  Other rays and boxes
+take the exact test.  ``cluster_work`` turns a
 call's per-tile stats (steps, and the triangle tests the answer needs)
 into the bytes and FP32 operations it needs.
 
@@ -415,7 +431,13 @@ _SIGNATURES = {
     "cluster_closest": [_P] * 11 + [_I] * 4 + [_P],
     "cluster_any": [_P] * 8 + [_I] * 4 + [_P],
     "cluster_resources": [_I, _I, ctypes.POINTER(_I)],
+    "cluster_mask_resources": [_I, _I, ctypes.POINTER(_I)],
 }
+
+
+def _resources(vals) -> dict:
+    return dict(ctas_per_sm=vals[0], registers=vals[1], threads=vals[2],
+                shared_bytes=vals[3], local_bytes=vals[4])
 
 
 def build_kernels():
@@ -435,12 +457,22 @@ def build_kernels():
             if err != 0:
                 raise RuntimeError(f"{name}: CUDA error {err} querying "
                                    "resources")
-            res[name] = dict(ctas_per_sm=vals[0], registers=vals[1],
-                             threads=vals[2], shared_bytes=vals[3],
-                             local_bytes=vals[4])
+            res[name] = _resources(vals)
         BUILD_INFO.update(info, resources=res)
         _LIB = lib
     return _LIB
+
+
+def mask_resources(tile: int, c: int) -> dict:
+    """What the CUDA runtime reports for ``cluster_mask``'s kernel at
+    ``tile`` rays a tile and ``c`` clusters (its shared memory and so its
+    resident CTAs depend on both): as ``BUILD_INFO["resources"]``."""
+    vals = (ctypes.c_int * 5)()
+    err = build_kernels().cluster_mask_resources(tile, c, vals)
+    if err != 0:
+        raise RuntimeError(f"cluster_mask: CUDA error {err} querying "
+                           "resources")
+    return _resources(vals)
 
 
 # ---------------------------- kernel wrappers ----------------------------

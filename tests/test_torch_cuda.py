@@ -629,7 +629,8 @@ def test_cuda_cluster_kernels_match_plain(tile, group):
     assert {k: tct.LAUNCHES[k] - before[k] for k in before} == {
         "cluster_mask": 1, "cluster_closest": 1, "cluster_any": 1}
     p_mask, p_entry = tct._mask_plain(rows, cl, tile)
-    assert torch.equal(mask, p_mask) and torch.equal(entry, p_entry)
+    assert torch.equal(mask, p_mask)
+    assert torch.equal(_bits(entry), _bits(p_entry))
     p_closest = tct._phase_b_plain(rows, cl, wl, went, count, tile, False)
     p_occ = tct._phase_b_plain(rows, cl, wl, None, count, tile, True)
     for k, p in zip(closest + occ, p_closest + p_occ):
@@ -690,6 +691,31 @@ def test_cuda_cluster_packing_matches_plain(tile, group, level):
     assert (steps[torch.as_tensor(kinds == "nan_dead")] == 0).all()
     assert int((closest[0][:, 0] < 1e30).sum()) > 0
     assert int(occ[0].sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [1, 38, 2073])
+@pytest.mark.parametrize("tile", [96, 128, 1024])
+def test_cuda_cluster_mask_matches_plain(tile, c):
+    """cluster_mask on ``cluster_study.mask_case``'s adversarial tiles
+    (every live count from 0 to the tile, dead rays of every kind, equal
+    bounds, -0.0 entries, rays on box faces, zero, tiny, huge and
+    non-finite components, non-finite boxes), repeated beyond one wave of
+    CTAs, against ``_mask_plain``: mask and entry bit for bit, one launch
+    counted."""
+    from royaltracer_dx_tpu_torch.tools.cluster_study import mask_case
+
+    dev = _card()
+    reps = max(1, 4096 // (tile + 4))
+    rows, cl, _ = mask_case(dev, tile, c, reps)
+    before = tct.LAUNCHES["cluster_mask"]
+    got = tct.cluster_mask(rows, cl, tile)
+    torch.cuda.synchronize()
+    assert tct.LAUNCHES["cluster_mask"] - before == 1
+    want = tct._mask_plain(rows, cl, tile)
+    for k, p in zip(got, want):
+        assert torch.equal(_bits(k), _bits(p))
+    assert bool(got[0].any()) and not bool(got[0].all())
 
 
 @pytest.mark.gpu
