@@ -4,8 +4,10 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-  1. device   name and power limit from nvidia-smi; build the stream
-              kernels from royaltracer_dx_tpu_torch/csrc/stream_trace.cu
+  1. device   name and power limit from nvidia-smi; build the kernels of
+              royaltracer_dx_tpu_torch/csrc/ (stream_trace.cu,
+              bvh_traverse.cu, cluster_traverse.cu, mxu_trace.cu: one nvcc
+              a source, started together) and print their resources
   2. kernels  each CUDA kernel against its plain PyTorch version on the
               same inputs on the card -- (a) the menger accel with 1M
               random rays, closest, and any-hit with half the lanes
@@ -136,7 +138,25 @@ Phases (any failure exits non-zero and prints no result line):
               power of two) against their plain versions.  No sponza
               ReSTIR frame under "cluster": its 18.7M-segment pass-3
               batch would take minutes.
-  8. the {"kernels": [...]} line, then the {"ok": true, ...} line.
+  8. mxu      the matmul form of Moller-Trumbore (ops/mxu_trace.py) on
+              (a) the menger scene's 4,802 triangles with its 1920x1080
+              camera rays and a shadow batch from their hits toward the
+              light (every third lane masked), and (b) the 32-triangle
+              Cornell box at 512x512, each path with every count set to
+              0 just before and read just after and the plain versions
+              refused (both kernels launched, nothing else); on a
+              65,536-lane sample of each batch the kernels' t, u, v,
+              triangle ids, occlusion and tests bit-equal to the plain
+              versions and held to tests/test_mxu_trace.py's bars against
+              brute force; each kernel, the stream and LBVH kernels on the
+              same rays and torch.matmul of the [4096, 10] @ [10, 4Tp]
+              product alone (TF32 off) timed on the whole batches beside
+              the bound (mxu_work); (c) tools/mxu_cases.py's adversarial
+              inputs, kernel against plain bit for bit; one function of
+              each AoS family (math3d, rng, bsdf, reservoir,
+              light_sampling, restir) and coherence_order on the card.
+  9. the {"kernels": [...]} line (nine kernels), then
+ 10. the {"ok": true, ...} line.
 
 --out DIR writes the rendered images there as PNGs (else the scenes
 phase writes its CLI outputs into a temporary directory).  --profile runs
@@ -1820,20 +1840,21 @@ def entry_error(a, b) -> float:
     return float(torch.where(a == b, 0.0, (a - b).abs()).max())
 
 
-def all_launches() -> dict:
+def trace_modules():
     from royaltracer_dx_tpu_torch.ops import cluster_traverse as ct
+    from royaltracer_dx_tpu_torch.ops import mxu_trace as mx
     from royaltracer_dx_tpu_torch.ops import stream_trace as st
     from royaltracer_dx_tpu_torch.ops import traverse as tv
 
-    return {**st.LAUNCHES, **tv.LAUNCHES, **ct.LAUNCHES}
+    return st, tv, ct, mx
+
+
+def all_launches() -> dict:
+    return {k: v for mod in trace_modules() for k, v in mod.LAUNCHES.items()}
 
 
 def reset_all_launches():
-    from royaltracer_dx_tpu_torch.ops import cluster_traverse as ct
-    from royaltracer_dx_tpu_torch.ops import stream_trace as st
-    from royaltracer_dx_tpu_torch.ops import traverse as tv
-
-    for mod in (st, tv, ct):
+    for mod in trace_modules():
         for k in mod.LAUNCHES:
             mod.LAUNCHES[k] = 0
 
@@ -1853,23 +1874,27 @@ def read_cluster_launches(label, kernels=tuple(CLUSTER_KERNELS)):
 
 
 class NoPlain:
-    """While a path runs on the card, fails if a cluster kernel's plain
-    version runs (every batch must launch the kernels)."""
+    """While a path runs on the card, fails if one of the plain versions
+    ``names`` of module ``mod`` runs (every batch must launch the
+    kernels); ``saved`` keeps them for the comparisons."""
+
+    def __init__(self, mod, *names):
+        self.mod, self.names = mod, names
 
     def __enter__(self):
-        from royaltracer_dx_tpu_torch.ops import cluster_traverse as ct
-
-        self.ct = ct
-        self.saved = (ct._mask_plain, ct._phase_b_plain)
+        self.saved = {n: getattr(self.mod, n) for n in self.names}
 
         def refuse(*args, **kw):
-            fail("a cluster kernel's plain version ran on the card path")
+            fail(f"a plain version of {self.mod.__name__} ran on the card "
+                 "path")
 
-        ct._mask_plain = ct._phase_b_plain = refuse
+        for n in self.names:
+            setattr(self.mod, n, refuse)
         return self
 
     def __exit__(self, *exc):
-        self.ct._mask_plain, self.ct._phase_b_plain = self.saved
+        for n, fn in self.saved.items():
+            setattr(self.mod, n, fn)
 
 
 class ClusterLaunches:
@@ -2173,7 +2198,7 @@ def phase_cluster(out_dir, rates, mismatches):
     torch.cuda.reset_peak_memory_stats()
     frames = 3
     reset_all_launches()
-    with NoPlain():
+    with NoPlain(ct, "_mask_plain", "_phase_b_plain"):
         frame_ms = [cuda_ms(renderer.render)[0] for _ in range(frames)]
     launches = read_cluster_launches("menger cluster frames")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2332,6 +2357,313 @@ def phase_cluster(out_dir, rates, mismatches):
     return out, entries
 
 
+# ------------------------------ phase 8 ----------------------------------
+
+MXU_SOURCE = "royaltracer_dx_tpu_torch/csrc/mxu_trace.cu"
+# the JAX routines the matmul-form kernels replace: XLA, not Pallas
+MXU_KERNELS = {
+    "mxu_closest": ("royaltracer_dx_tpu/ops/mxu_trace.py:142",
+                    "closest_hit_mxu (_products, _decide, _closest_chunk)"),
+    "mxu_any": ("royaltracer_dx_tpu/ops/mxu_trace.py:177",
+                "any_hit_mxu (_anyhit_chunk)"),
+}
+# (scene, width, height) of the phase's paths: the menger accel's 4,802
+# triangles at 1080p, the 32-triangle Cornell box at 512x512
+MXU_SCENES = (("menger", 1920, 1080), ("cornell", 512, 512))
+
+
+def bits(x):
+    """A tensor's values as integers: float bits (NaN, -0.0 and all), bools
+    and ints as they are, for bit-equality."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def mxu_mismatch(name, k_out, p_out, label, mismatches):
+    """Kernel outputs against the plain version's, bit for bit: (t, tri,
+    u, v) or (occluded, tests).  Fails on any difference."""
+    bad = torch.zeros(k_out[0].shape[0], dtype=torch.bool,
+                      device=k_out[0].device)
+    err = 0.0
+    for k, p in zip(k_out, p_out):
+        ne = bits(k) != bits(p)
+        bad |= ne
+        if ne.any() and k.dtype == torch.float32:
+            err = max(err, float((k - p).abs()[ne].nan_to_num(
+                float("inf")).max()))
+    n_bad = int(bad.sum())
+    if n_bad:
+        fail(f"{name} on {label}: {n_bad} of {bad.numel()} lanes differ from "
+             f"the plain version (largest difference {err!r})")
+    mismatches.setdefault(name, []).append(dict(case=label, lanes=bad.numel(),
+                                                bad=0, max_abs_err=err))
+
+
+def shadow_batch(o, d, hit, lights, object_to_world):
+    """A shadow ray a lane toward the lights' centroid from the primary
+    hit (a point 3 units along a ray that missed), t_min 1e-4, t_max
+    short of the light; every third lane masked (t_max -1 < t_min)."""
+    from royaltracer_dx_tpu_torch.ops import light_sampling as ls
+
+    wv = ls.light_world_verts(lights, object_to_world, torch.arange(
+        lights.count, device=o.device))
+    target = wv.reshape(-1, 3).mean(dim=0)
+    t = torch.where(hit.t < 1e29, hit.t * (1.0 - 1e-4), 3.0)
+    x = o + t[:, None] * d
+    to = target - x
+    dist = torch.linalg.vector_norm(to, dim=1)
+    lane = torch.arange(o.shape[0], device=o.device)
+    t_max = torch.where(lane % 3 == 0, -1.0, dist * (1.0 - 1e-3))
+    return (x.contiguous(), (to / dist[:, None]).contiguous(),
+            torch.full_like(dist, 1e-4), t_max.contiguous())
+
+
+def brute_agreement(label, k_hit, b_hit):
+    """The matmul form against brute force at tests/test_mxu_trace.py's
+    bars: hit state and t (within 1e-4 max(1, |t|)) on >= 0.999 of the
+    lanes, the same triangle on >= 0.98 of the lanes both hit, u / v
+    within 2e-4 there."""
+    kt, bt = k_hit[0], b_hit.t
+    kh, bh = kt < 1e29, bt < 1e29
+    both = kh & bh
+    close = (kt - bt).abs() <= 1e-4 * torch.clamp_min(bt.abs(), 1.0)
+    frac = float(((kh == bh) & (close | ~both)).float().mean())
+    same = both & (k_hit[1] == b_hit.tri)
+    tri_frac = float(same.sum()) / max(int(both.sum()), 1)
+    uv = max(float((k_hit[2] - b_hit.u).abs()[same].max()),
+             float((k_hit[3] - b_hit.v).abs()[same].max())) \
+        if same.any() else 0.0
+    if not (frac >= 0.999 and tri_frac >= 0.98 and uv <= 2e-4):
+        fail(f"mxu_closest on {label}: brute-force agreement {frac}, same "
+             f"triangle {tri_frac}, u/v difference {uv}")
+    return dict(agree=frac, same_tri=tri_frac, uv_max_diff=uv)
+
+
+def mxu_path(scene_name, w, h, rates, mismatches, plain, dev):
+    """One scene's camera batch and shadow batch: the main path through
+    closest_hit_mxu / any_hit_mxu with every count set to 0 just before
+    and read just after, the kernels against the plain versions
+    (``plain``, the functions NoPlain saved) on a 65,536-lane sample and
+    against brute force, and the times of the kernels, the stream and
+    LBVH kernels on the same rays, the plain versions and torch.matmul of
+    the product alone."""
+    from royaltracer_dx_tpu_torch import cli
+    from royaltracer_dx_tpu_torch.camera import generate_rays
+    from royaltracer_dx_tpu_torch.ops import mxu_trace as mx
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+    from royaltracer_dx_tpu_torch.ops import traverse as tv
+    from royaltracer_dx_tpu_torch.ops.bvh import build_lbvh
+    from royaltracer_dx_tpu_torch.ops.intersect import (
+        any_hit_brute,
+        closest_hit_brute,
+    )
+
+    scene, camera = cli.build_scene(scene_name)
+    sa = scene.flatten(scene.build_materials(device=dev), device=dev)
+    ca = {k: torch.as_tensor(x, device=dev)
+          for k, x in camera.matrices(w / h).items()}
+    o, d = generate_rays(ca, w, h)
+    o, d = o.contiguous(), d.contiguous()
+    n = o.shape[0]
+    tris = sa.tri_verts
+    build_ms, mt = cuda_ms(lambda: mx.build_mxu_tris(tris))
+    reset_all_launches()
+    hit = mx.closest_hit_mxu(o, d, mt)
+    rays = {"closest": (o, d, *mx.prepare_rays(o, d, 1e-4, 1e4)[2:]),
+            "any": shadow_batch(o, d, hit, sa.lights, sa.object_to_world)}
+    occ = mx.any_hit_mxu(*rays["any"][:2], mt, *rays["any"][2:])
+    torch.cuda.synchronize()
+    got = all_launches()
+    launches = {k: got[k] for k in MXU_KERNELS}
+    other = {k: v for k, v in got.items() if k not in MXU_KERNELS and v}
+    if not all(launches.values()) or other:
+        fail(f"{scene_name} mxu path: launches {launches}, others {other}")
+    if not torch.isfinite(hit.t).all() or not bool((hit.t < 1e29).any()):
+        fail(f"{scene_name} mxu path: no hit or a non-finite t")
+    if bool(occ[rays["any"][3] < rays["any"][2]].any()):
+        fail(f"{scene_name} mxu path: a masked shadow lane is occluded")
+    outs = {"mxu_closest": (hit.t, hit.tri, hit.u, hit.v)}
+    _, tests = mx.mxu_any(*rays["any"], mt, stats=True)
+    outs["mxu_any"] = (occ, tests)
+    idx = sample_lanes(n, dev)
+    res = {"triangles": mt.num_tris, "padded": mt.padded, "lanes": n,
+           "build_ms": build_ms, "launches": launches,
+           "hits": int((hit.t < 1e29).sum()), "occluded": int(occ.sum())}
+    acc = st.build_stream_accel(tris)
+    bvh = build_lbvh(tris)
+    for name, kind in (("mxu_closest", "closest"), ("mxu_any", "any")):
+        args = rays[kind]
+        sample = tuple(x[idx] for x in args)
+        p_fn = plain[f"_{kind}_plain"]
+        extra = () if kind == "closest" else (mt.num_tris,)
+        plain_ms, p_out = cuda_ms(lambda: p_fn(*sample, mt.coeff, mt.center,
+                                                *extra))
+        mxu_mismatch(name, tuple(x[idx] for x in outs[name]), p_out,
+                     f"{scene_name} {kind} sample", mismatches)
+        k_sample = tuple(x[idx] for x in outs[name])
+        if kind == "closest":
+            agree = brute_agreement(scene_name, k_sample, closest_hit_brute(
+                sample[0], sample[1], tris, sample[2], sample[3]))
+        else:
+            b_occ = any_hit_brute(sample[0], sample[1], tris, sample[2],
+                                  sample[3])
+            agree = dict(agree=float((b_occ == k_sample[0]).float().mean()))
+            if not agree["agree"] >= 0.999:
+                fail(f"mxu_any on {scene_name}: brute-force agreement "
+                     f"{agree['agree']}")
+        kern = mx.mxu_closest if kind == "closest" else mx.mxu_any
+        # warm with two calls: the timed loop holds two calls' outputs
+        cuda_ms(lambda: kern(*args, mt), reps=2)
+        ms, _ = cuda_ms(lambda: kern(*args, mt), reps=3)
+        live = int((args[2] < args[3]).sum())
+        work = mx.mxu_work(n, mt, live, int(tests.sum()), kind == "closest")
+        bound = st.bound_ms(work, *rates)
+        call = st.prepare_stream(args[0], args[1], acc, args[2], args[3],
+                                 16)
+        s_kern = st.stream_closest if kind == "closest" else st.stream_any
+        cuda_ms(lambda: s_kern(*call, acc.blk_tris, acc.blk_boxes), reps=2)
+        stream_ms, _ = cuda_ms(lambda: s_kern(*call, acc.blk_tris,
+                                               acc.blk_boxes), reps=3)
+        packed = tv.pack_rays(*args)
+        b_kern = tv.bvh_closest if kind == "closest" else tv.bvh_any
+        cuda_ms(lambda: b_kern(packed, bvh), reps=2)
+        bvh_ms, _ = cuda_ms(lambda: b_kern(packed, bvh), reps=3)
+        feats = torch.cat([torch.stack(mx._features(args[0], args[1],
+                                                    mt.center), dim=1),
+                           torch.ones((n, 1), device=dev)], dim=1)
+        prod = torch.empty((mx._RAY_CHUNK, mt.coeff.shape[1]), device=dev)
+
+        def library():
+            for s in range(0, n, mx._RAY_CHUNK):
+                f = feats[s:s + mx._RAY_CHUNK]
+                torch.matmul(f, mt.coeff, out=prod[:f.shape[0]])
+
+        library()
+        library_ms, _ = cuda_ms(library)
+        del feats, prod
+        res[name] = dict(ms=ms, plain_ms=plain_ms, plain_lanes=len(idx),
+                         stream_ms=stream_ms, bvh_ms=bvh_ms,
+                         library_ms=library_ms, work=work, **bound, **agree)
+        print(f"  {scene_name} {name}: {n} lanes ({live} live) x "
+              f"{mt.num_tris} triangles ({mt.padded} padded): kernel "
+              f"{ms:.3f} ms, bound {bound['bound_ms']:.3f} ms "
+              f"({bound['bound_by']}; no-FMA floor "
+              f"{bound['nofma_floor_ms']:.3f}; every padded pair "
+              f"{work['dense_fp32_ops'] / rates[0] * 1e3:.3f}); "
+              f"stream_{kind} {stream_ms:.3f} ms, bvh_{kind} {bvh_ms:.3f} "
+              f"ms on the same rays; torch.matmul of the product alone "
+              f"{library_ms:.3f} ms; plain {plain_ms:.3f} ms on {len(idx)} "
+              f"lanes, bit-equal to the kernel there; brute force {agree}",
+              flush=True)
+    return res
+
+
+def aos_on_card(dev):
+    """One function of each A'15 family and coherence_order on CUDA
+    tensors (the menger scene, 4,096 lanes): each runs and gives finite
+    values on the card."""
+    from royaltracer_dx_tpu_torch.config import RenderConfig
+    from royaltracer_dx_tpu_torch.ops import bsdf, light_sampling, reservoir
+    from royaltracer_dx_tpu_torch.ops import restir
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+    from royaltracer_dx_tpu_torch.scene.procedural import menger_scene
+    from royaltracer_dx_tpu_torch.utils import math3d, rng
+
+    scene, _ = menger_scene()
+    sa = scene.flatten(scene.build_materials(device=dev), device=dev)
+    n = 4096
+    o, d = random_rays(n, 0.0, 1.0, 5, dev)
+    x2, n2 = random_rays(n, 0.0, 1.0, 6, dev)
+    seed = torch.stack([torch.arange(n, device=dev),
+                        torch.arange(n, device=dev) * 7 + 1], dim=1)
+    mat = restir.fetch_material(sa, torch.zeros(n, dtype=torch.int32,
+                                                device=dev))
+    u, seed2 = rng.tea_randoms(seed, 3)
+    r0 = reservoir.ReservoirDI.zeros_like_lanes(o)
+    r1, took, _ = reservoir.update_reservoir_di(
+        r0, torch.ones(n, dtype=torch.bool, device=dev), u[:, 0] + 0.1,
+        torch.ones(n, device=dev), x2, n2, x2, seed2)
+    order, inverse = st.coherence_order(o, d,
+                                        st.build_stream_accel(sa.tri_verts))
+    out = {
+        "math3d.reflect": math3d.reflect(d, n2),
+        "rng.tea_randoms": u,
+        "bsdf.eval_bsdf_blend": bsdf.eval_bsdf_blend(
+            mat["kd"], mat["ks"], mat["metal"], mat["rough"], mat["lut"],
+            n2, -d, -d),
+        "reservoir.update_reservoir_di": r1.w_sum,
+        "light_sampling.select_light": light_sampling.select_light(
+            sa.lights, u[:, 1]).float(),
+        "restir.get_p_hat_di": restir.get_p_hat_di(
+            sa, o, n2, x2, n2, x2, -d, mat, True, RenderConfig()),
+        "stream_trace.coherence_order": order[inverse].float(),
+    }
+    for k, v in out.items():
+        if v.device.type != dev.type:
+            fail(f"{k}: its output is on {v.device}, not {dev}")
+        if not bool(torch.isfinite(v).all()):
+            fail(f"{k} on {dev}: a value is not finite")
+    if not torch.equal(order[inverse], torch.arange(n, device=dev,
+                                                   dtype=order.dtype)):
+        fail("coherence_order: the inverse does not invert the order")
+    print(f"  AoS families on the card ({n} lanes, menger): "
+          f"{', '.join(out)}: finite, on {dev}", flush=True)
+    return sorted(out)
+
+
+def phase_mxu(rates, mismatches):
+    """(a) menger and (b) Cornell through the MXU kernels (``mxu_path``),
+    (c) the adversarial cases of tools/mxu_cases.py, kernel against plain
+    bit for bit, and one AoS function of each family on the card.
+    Returns (results, kernel entries)."""
+    from royaltracer_dx_tpu_torch.ops import mxu_trace as mx
+    from royaltracer_dx_tpu_torch.tools.mxu_cases import MXU_CASES, mxu_case
+
+    dev = torch.device("cuda")
+    out = {}
+    # the plain versions refuse to run for the whole phase: a kernel that
+    # fails to build or launch cannot hand off to them
+    with NoPlain(mx, "_closest_plain", "_any_plain") as guard:
+        plain = guard.saved
+        for scene_name, w, h in MXU_SCENES:
+            t0 = time.perf_counter()
+            out[scene_name] = mxu_path(scene_name, w, h, rates, mismatches,
+                                       plain, dev)
+            print(f"  ({scene_name}) {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        t0 = time.perf_counter()
+        for case in MXU_CASES:
+            tris, o, d, lo, hi = mxu_case(case, dev)
+            mt = mx.build_mxu_tris(tris)
+            k_c = mx.mxu_closest(o, d, lo, hi, mt)
+            k_a = mx.mxu_any(o, d, lo, hi, mt, stats=True)
+            torch.cuda.synchronize()
+            mxu_mismatch("mxu_closest", k_c, plain["_closest_plain"](
+                o, d, lo, hi, mt.coeff, mt.center), case, mismatches)
+            mxu_mismatch("mxu_any", k_a, plain["_any_plain"](
+                o, d, lo, hi, mt.coeff, mt.center, mt.num_tris), case,
+                mismatches)
+    print(f"  adversarial cases {', '.join(MXU_CASES)} ({len(o)} rays "
+          "each): both kernels bit-equal to the plain versions "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    out["aos_on_card"] = aos_on_card(dev)
+    entries = {}
+    for name, (replaces, fn) in MXU_KERNELS.items():
+        big = out["menger"][name]
+        entries[name] = dict(
+            name=name, route="cuda", source=MXU_SOURCE, replaces=replaces,
+            replaces_fn=fn,
+            launches=sum(out[s]["launches"][name] for s, _, _ in MXU_SCENES),
+            ms=big["ms"], bound_ms=big["bound_ms"], bound_by=big["bound_by"],
+            nofma_floor_ms=big["nofma_floor_ms"], plain_ms=big["plain_ms"],
+            plain_lanes=big["plain_lanes"], library_ms=big["library_ms"],
+            shape_lanes=out["menger"]["lanes"],
+            paths={s: {k: out[s][name][k] for k in (
+                "ms", "bound_ms", "nofma_floor_ms", "plain_ms", "library_ms",
+                "stream_ms", "bvh_ms")} for s, _, _ in MXU_SCENES},
+            resources=mx.BUILD_INFO["resources"][name])
+    return out, entries
+
+
 # -------------------------------- main -----------------------------------
 
 
@@ -2350,6 +2682,7 @@ def main() -> None:
     import royaltracer_dx_tpu_torch  # noqa: F401  (sets the TF32 switches)
     from royaltracer_dx_tpu_torch.config import RenderConfig
     from royaltracer_dx_tpu_torch.ops import cluster_traverse as ct
+    from royaltracer_dx_tpu_torch.ops import mxu_trace as mx
     from royaltracer_dx_tpu_torch.ops import stream_trace as st
     from royaltracer_dx_tpu_torch.ops import traverse as tv
     from royaltracer_dx_tpu_torch.render.restir_renderer import RestirRenderer
@@ -2377,12 +2710,14 @@ def main() -> None:
           f"memory {hbm / 1e12:.2f} TB/s; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     # one nvcc per source, started together
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         for fut in [pool.submit(st.build_kernels),
                     pool.submit(tv.build_kernels),
-                    pool.submit(ct.build_kernels)]:
+                    pool.submit(ct.build_kernels),
+                    pool.submit(mx.build_kernels)]:
             fut.result()
-    for info in (st.BUILD_INFO, tv.BUILD_INFO, ct.BUILD_INFO):
+    for info in (st.BUILD_INFO, tv.BUILD_INFO, ct.BUILD_INFO,
+                 mx.BUILD_INFO):
         print(f"  built {os.path.relpath(info['path'], ROOT)} in "
               f"{info['seconds']:.1f} s ({' '.join(info['flags'])})",
               flush=True)
@@ -2406,6 +2741,12 @@ def main() -> None:
               f"threads resident per SM at tiles and clusters of 128, "
               f"{res['registers']} registers per thread, "
               f"{res['local_bytes']} B spilled per thread, "
+              f"{res['shared_bytes']} B of shared memory per CTA",
+              flush=True)
+    for name, res in mx.BUILD_INFO["resources"].items():
+        print(f"  {name}: {res['ctas_per_sm']} CTAs of {res['threads']} "
+              f"threads resident per SM, {res['registers']} registers per "
+              f"thread, {res['local_bytes']} B spilled per thread, "
               f"{res['shared_bytes']} B of shared memory per CTA",
               flush=True)
 
@@ -2516,7 +2857,13 @@ def main() -> None:
         print(f"  cluster phase {time.perf_counter() - t0:.1f} s",
               flush=True)
 
-    # ---- phase 8: the kernels line and the ok line
+    # ---- phase 8: the MXU study's kernels
+    print("phase 8: mxu", flush=True)
+    t0 = time.perf_counter()
+    mxu, mxu_entries = phase_mxu((peak_flops, hbm), mismatches)
+    print(f"  mxu phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- phases 9-10: the kernels line and the ok line
     for e in entries:
         e["scenes"] = dict(by_kernel[e["name"]], **by_kernel_o[e["name"]])
         e["max_abs_err"] = max(c["max_abs_err"] for c in mismatches[e["name"]])
@@ -2535,12 +2882,20 @@ def main() -> None:
                                lanes_checked=sum(c["lanes"] for c in checks),
                                values_differ=sum(c["bad"] for c in checks)))
         entries.append(e)
+    for name, e in mxu_entries.items():
+        checks = mismatches[name]
+        e.update(max_abs_err=max(c["max_abs_err"] for c in checks),
+                 mismatch=dict(cases_checked=len(checks),
+                               lanes_checked=sum(c["lanes"] for c in checks),
+                               lanes_differ=sum(c["bad"] for c in checks)))
+        entries.append(e)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries, "frame_ms": timed,
                       "small_frames_agree": agree, "profile": profile,
                       "scenes": scenes, "oracles": oracles,
                       "sharding": sharding, "lbvh": lbvh,
-                      "cluster": cluster, "device": name_power}), flush=True)
+                      "cluster": cluster, "mxu": mxu,
+                      "device": name_power}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

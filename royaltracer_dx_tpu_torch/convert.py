@@ -10,6 +10,9 @@ the JAX dataclass fields:
   object_to_world, prev_object_to_world,
   stream.{blk_tris, blk_boxes, top_lo, top_hi, perm}   (optional)
 
+and the matmul tracer's coefficients as {coeff, center, num_tris}
+(``mxu_tris_from_numpy``).
+
 Renderer state crosses through ``RestirRenderer.state_dict`` /
 ``load_state``, which use the npz key names of the JAX package's
 io/checkpoint.py:36-57.  Nothing here imports jax.
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from royaltracer_dx_tpu_torch.device import resolve_device
+from royaltracer_dx_tpu_torch.ops.mxu_trace import MxuTris
 from royaltracer_dx_tpu_torch.ops.stream_trace import StreamAccel
 from royaltracer_dx_tpu_torch.scene.types import (
     LightTriangles,
@@ -55,6 +59,15 @@ def stream_accel_from_numpy(d: dict, device=None,
     acc.blk_tris = acc.blk_tris.contiguous()
     acc.blk_boxes = acc.blk_boxes.contiguous()
     return acc
+
+
+def mxu_tris_from_numpy(d: dict, device=None) -> MxuTris:
+    """MxuTris from {"coeff", "center", "num_tris"} (the JAX MxuTris's
+    fields: coeff [10, 4Tp], center [3], the triangle count)."""
+    dev = resolve_device(device)
+    return MxuTris(coeff=_tensor(d, "coeff", dev).contiguous(),
+                   center=_tensor(d, "center", dev).contiguous(),
+                   num_tris=int(d["num_tris"]))
 
 
 def scene_arrays_from_numpy(d: dict, device=None) -> SceneArrays:

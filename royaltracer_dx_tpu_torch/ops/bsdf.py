@@ -1,10 +1,18 @@
-"""BSDF library, planar forms (port of royaltracer_dx_tpu/ops/bsdf.py).
+"""BSDF library (port of royaltracer_dx_tpu/ops/bsdf.py).
 
 Lambertian + GGX with multiscatter compensation and the two-lobe
-blend (GGX_v6.hlsl, Lambertian_v6.hlsl, BRDF_v6.hlsl).  Only the planar
-``_p`` forms the ReSTIR renderer calls are ported, with the helpers they
-share; conventions as in the JAX package: n/l/v planar unit vectors, l
-toward the light, v toward the viewer, PI = the reference's 3.1415.
+blend (GGX_v6.hlsl, Lambertian_v6.hlsl, BRDF_v6.hlsl), in two forms as
+in the JAX package:
+
+* AoS (bsdf.py:44-260, :462-480): vectors [..., 3], ``outgoing`` toward
+  the viewer, ``incoming`` INTO the surface (the light direction is
+  -incoming), material parameters per lane (kd [..., 4] or [..., 3], ks
+  [..., 3], roughness [...], lut_row [..., 16]); the reference-shaped API
+  that the AoS ReSTIR helpers (ops/restir.py) call;
+* planar ``_p`` (:274-459): n / l / v planar unit vectors, l toward the
+  light, what the ReSTIR passes call.
+
+PI is the reference's 3.1415.
 """
 
 from __future__ import annotations
@@ -12,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from royaltracer_dx_tpu_torch.config import EPSILON, REF_PI
+from royaltracer_dx_tpu_torch.utils import math3d as m3
 from royaltracer_dx_tpu_torch.utils import pvec as pv
 from royaltracer_dx_tpu_torch.utils.rng import tea_random
 
@@ -217,3 +226,188 @@ def sample_bsdf_p(strategy, ks, roughness, v, n, seed):
     d_lam, _ = sample_lambertian_p(n, seed)
     d_spec, seed_out = sample_ggx_p(roughness, v, n, seed)
     return pv.where(strategy == 1, d_spec, d_lam), seed_out
+
+
+# ------------------------------ AoS forms -------------------------------
+
+
+def schlick_fresnel(f0, cos_theta):
+    """saturate(F0 + (1 - F0) |1 - cos|^5) (bsdf.py:44-47)."""
+    p = _pow5(1.0 - cos_theta)
+    return torch.clamp(f0 + (1.0 - f0) * p[..., None], 0.0, 1.0)
+
+
+def ess_lookup(lut_row, ndotv):
+    """Linear interpolation into the 16-entry E_ss LUT (bsdf.py:70-84):
+    lut_row [..., 16] broadcast against ndotv [...]."""
+    size = lut_row.shape[-1]
+    x = torch.clamp(ndotv, 0.0, 1.0) * (size - 1)
+    # a NaN ndotv gives a NaN answer whatever the index; XLA converts it
+    # to index 0, torch's cast is undefined
+    i0 = torch.floor(torch.nan_to_num(x, nan=0.0)).to(torch.int64)
+    i1 = torch.clamp_max(i0 + 1, size - 1)
+    w = x - i0.to(x.dtype)
+    rows = lut_row.expand(*x.shape, size)
+    v0 = torch.gather(rows, -1, i0[..., None])[..., 0]
+    v1 = torch.gather(rows, -1, i1[..., None])[..., 0]
+    return v0 * (1.0 - w) + v1 * w
+
+
+def sample_lambertian(normal, seed):
+    """Cosine-weighted hemisphere sample with the reference's basis and
+    mirror fixup (bsdf.py:90-116; its basis is m3.coordinate_system's).
+    Returns (dir, seed)."""
+    u1, seed = tea_random(seed)
+    u2, seed = tea_random(seed)
+    r = torch.sqrt(u1)
+    theta = 2.0 * _PI_F32 * u2
+    x = r * torch.cos(theta)
+    y = r * torch.sin(theta)
+    z = torch.sqrt(torch.clamp_min(1.0 - x * x - y * y, 0.0))
+    right, forward = m3.coordinate_system(normal)
+    d = (x[..., None] * right + y[..., None] * forward
+         + z[..., None] * normal)
+    d = m3.normalize(d)
+    return torch.where((m3.dot(d, normal) < 0.0)[..., None], -d, d), seed
+
+
+def eval_lambertian(kd):
+    """Kd / pi (bsdf.py:119-121); kd [..., 3]."""
+    return kd / REF_PI
+
+
+def pdf_lambertian(normal, incoming):
+    """max(dot(n, -incoming), EPS) / pi (bsdf.py:124-126)."""
+    return torch.clamp_min(m3.dot(normal, -incoming), EPSILON) / REF_PI
+
+
+def sample_ggx(roughness, outgoing, normal, seed):
+    """Heitz VNDF sample -> reflected direction, flipped into the normal's
+    hemisphere (bsdf.py:132-169).  Returns (dir, seed)."""
+    alpha = (roughness * roughness)[..., None]
+    n = m3.normalize(normal)
+    v = m3.normalize(outgoing)
+    t1w, t2w = m3.coordinate_system(n)
+    vl = torch.stack([m3.dot(t1w, v), m3.dot(t2w, v), m3.dot(n, v)], dim=-1)
+    ve = m3.normalize(torch.cat([alpha * vl[..., :2], vl[..., 2:]], dim=-1))
+    lensq = ve[..., 0] * ve[..., 0] + ve[..., 1] * ve[..., 1]
+    inv = torch.rsqrt(torch.clamp_min(lensq, 1e-20))
+    t1h = torch.where(
+        (lensq > 0.0)[..., None],
+        torch.stack([-ve[..., 1] * inv, ve[..., 0] * inv,
+                     torch.zeros_like(inv)], dim=-1),
+        torch.tensor([1.0, 0.0, 0.0], dtype=ve.dtype, device=ve.device))
+    t2h = m3.cross(ve, t1h)
+    u1, seed = tea_random(seed)
+    u2, seed = tea_random(seed)
+    r = torch.sqrt(u1)
+    phi = 2.0 * REF_PI * u2
+    p1 = r * torch.cos(phi)
+    p2 = r * torch.sin(phi)
+    s = 0.5 * (1.0 + ve[..., 2])
+    p2 = (1.0 - s) * torch.sqrt(torch.clamp(1.0 - p1 * p1, 0.0, 1.0)) + s * p2
+    nh = (p1[..., None] * t1h + p2[..., None] * t2h
+          + torch.sqrt(torch.clamp(1.0 - p1 * p1 - p2 * p2, 0.0,
+                                   1.0))[..., None] * ve)
+    ne = m3.normalize(torch.cat([alpha * nh[..., :2],
+                                 torch.clamp_min(nh[..., 2:], 0.0)], dim=-1))
+    h = ne[..., 0:1] * t1w + ne[..., 1:2] * t2w + ne[..., 2:3] * n
+    d = m3.reflect(-v, h)
+    return torch.where((m3.dot(d, normal) < 0.0)[..., None], -d, d), seed
+
+
+def eval_ggx(ks, roughness, lut_row, normal, incoming, outgoing):
+    """GGX specular with the multiscatter LUT (bsdf.py:172-206); zero
+    where 4 NdotV NdotL < EPS, a cosine is not positive or the result is
+    not finite."""
+    n = m3.normalize(normal)
+    v = m3.normalize(outgoing)
+    l = m3.normalize(-incoming)
+    h = m3.normalize(v + l)
+    ndotv = m3.dot(n, v)
+    ndotl = m3.dot(n, l)
+    ndoth = m3.dot(n, h)
+    vdoth = m3.dot(v, h)
+    f = schlick_fresnel(ks, vdoth)
+    d = d_ggx(ndoth, roughness)
+    g = g2_smith(ndotv, ndotl, roughness * roughness)
+    denom = 4.0 * ndotv * ndotl
+    spec = f * (d * g)[..., None] / denom[..., None]
+    ess = ess_lookup(lut_row, ndotv)
+    kms = (1.0 - ess) / ess
+    spec = spec * (1.0 + ks * kms[..., None])
+    finite = torch.all(torch.isfinite(spec), dim=-1, keepdim=True)
+    ok = ((denom >= EPSILON) & (ndotv > 0.0) & (ndotl > 0.0))[..., None]
+    return torch.where(ok & finite, spec, 0.0)
+
+
+def pdf_ggx(roughness, normal, incoming, outgoing):
+    """VNDF pdf = G1 D / (4 NdotV), zero for a backside view
+    (bsdf.py:209-224)."""
+    n = m3.normalize(normal)
+    v = m3.normalize(outgoing)
+    l = m3.normalize(-incoming)
+    h = m3.normalize(v + l)
+    ndoth = m3.dot(n, h)
+    ndotv = m3.dot(n, v)
+    alpha = roughness * roughness
+    pdf = g1_smith(ndotv, alpha) * d_ggx(ndoth, roughness) / (ndotv * 4.0)
+    return torch.where(ndotv > 0.0, pdf, 0.0)
+
+
+def strategy_probs(ks, metallic, normal, outgoing):
+    """(p_diffuse, p_specular) (bsdf.py:230-235, BRDF_v6.hlsl:50-70)."""
+    fres = schlick_fresnel(ks, m3.dot(normal, outgoing))
+    p_s = torch.clamp_max(m3.luminance_avg(fres) + metallic, 1.0)
+    return 1.0 - p_s, p_s
+
+
+def select_strategy(ks, metallic, roughness, normal, outgoing, seed):
+    """Lobe pick, 0 = diffuse, 1 = GGX; a specular pick below roughness
+    0.04 degrades to diffuse (bsdf.py:238-248).  Returns (strategy int32,
+    p_specular, seed)."""
+    r, seed = tea_random(seed)
+    _, p_s = strategy_probs(ks, metallic, normal, outgoing)
+    spec = (r <= p_s) & (roughness >= 0.04)
+    return spec.to(torch.int32), p_s, seed
+
+
+def sample_bsdf(strategy, ks, roughness, outgoing, normal, seed):
+    """Sample the selected lobe; both lobes take the same 2 draws, so
+    either lobe's seed is the seed (bsdf.py:251-260)."""
+    d_lam, _ = sample_lambertian(normal, seed)
+    d_spec, seed_out = sample_ggx(roughness, outgoing, normal, seed)
+    return torch.where((strategy == 1)[..., None], d_spec, d_lam), seed_out
+
+
+def eval_bsdf(strategy, kd, ks, roughness, lut_row, normal, incoming,
+              outgoing):
+    """EvaluateBRDF of the selected strategy (bsdf.py:263-267)."""
+    lam = eval_lambertian(kd[..., :3]).expand(normal.shape)
+    gx = eval_ggx(ks, roughness, lut_row, normal, incoming, outgoing)
+    return torch.where((strategy == 1)[..., None], gx, lam)
+
+
+def pdf_bsdf(strategy, roughness, normal, incoming, outgoing):
+    """BRDF_PDF of the selected strategy (bsdf.py:270-274)."""
+    lam = pdf_lambertian(normal, incoming)
+    gx = pdf_ggx(roughness, normal, incoming, outgoing)
+    return torch.where(strategy == 1, gx, lam)
+
+
+def eval_bsdf_blend(kd, ks, metallic, roughness, lut_row, normal, incoming,
+                    outgoing):
+    """Probability-blended two-lobe eval p_d f_d + p_s f_s with
+    SafeMultiply zeroing (bsdf.py:462-469)."""
+    p_d, p_s = strategy_probs(ks, metallic, normal, outgoing)
+    f0 = eval_lambertian(kd[..., :3]).expand(normal.shape)
+    f1 = eval_ggx(ks, roughness, lut_row, normal, incoming, outgoing)
+    return m3.safe_multiply(p_d, f0) + m3.safe_multiply(p_s, f1)
+
+
+def pdf_bsdf_blend(ks, metallic, roughness, normal, incoming, outgoing):
+    """Probability-blended two-lobe pdf (bsdf.py:472-480)."""
+    p_d, p_s = strategy_probs(ks, metallic, normal, outgoing)
+    p0 = pdf_lambertian(normal, incoming)
+    p1 = pdf_ggx(roughness, normal, incoming, outgoing)
+    return _finite_or_zero(p_d * p0) + _finite_or_zero(p_s * p1)

@@ -1,7 +1,8 @@
 """Emissive-triangle sampling (port of
-royaltracer_dx_tpu/ops/light_sampling.py).  The planar path the ReSTIR
-passes use: per-pass light record columns, a CDF count-pick and a row
-gather of the picked records."""
+royaltracer_dx_tpu/ops/light_sampling.py): the AoS pick ``select_light``
+(a searchsorted, as the AoS NEE batch uses it) and the planar path the
+ReSTIR passes use: per-pass light record columns, a CDF count-pick and a
+row gather of the picked records."""
 
 from __future__ import annotations
 
@@ -9,6 +10,13 @@ import torch
 
 from royaltracer_dx_tpu_torch.config import EPSILON
 from royaltracer_dx_tpu_torch.scene.types import LightTriangles
+
+
+def select_light(lights: LightTriangles, u):
+    """First index with u < cdf[i], clipped to [0, L - 1] -- the HLSL
+    binary search (light_sampling.py:17-20).  Returns int32."""
+    idx = torch.searchsorted(lights.cdf, u.contiguous(), right=True)
+    return torch.clamp(idx, 0, lights.count - 1).to(torch.int32)
 
 
 def light_world_verts(lights: LightTriangles, object_to_world, idx):

@@ -1,15 +1,21 @@
 """ReSTIR reservoirs (port of royaltracer_dx_tpu/ops/reservoir.py).
 
-Reservoirs live as dicts: planar (vectors as 3-tuples of [N] planes)
-inside the passes, AoS ([N, 3] tensors) between frames — the persistent
-state, keyed like the JAX dataclass fields (x2/n2/l2/w_sum/w/m,
-xn/nn/e3/..., x1/n1/o/l1/mid/obj) so checkpoints map one to one.
+The renderer's reservoirs live as dicts: planar (vectors as 3-tuples of
+[N] planes) inside the passes, AoS ([N, 3] tensors) between frames — the
+persistent state, keyed like the JAX dataclass fields (x2/n2/l2/w_sum/w/m,
+xn/nn/e3/..., x1/n1/o/l1/mid/obj) so checkpoints map one to one.  The JAX
+package's AoS types ``ReservoirDI`` / ``ReservoirGI`` / ``SampleData``,
+their streaming updates, validity tests and planar converters
+(reservoir.py:21-178) are here too, for the AoS API.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from royaltracer_dx_tpu_torch.utils import math3d as m3
 from royaltracer_dx_tpu_torch.utils import pvec as pv
 from royaltracer_dx_tpu_torch.utils.rng import tea_random
 
@@ -69,3 +75,134 @@ def is_valid_di_p(r: dict):
 
 def is_valid_gi_p(r: dict):
     return (r["w_sum"] > 0.0) & (r["m"] > 0.0)
+
+
+# ------------------------------ AoS types --------------------------------
+
+
+def _zero_lanes(ref):
+    """([N, 3], [N]) zeros shaped from ``ref`` [N, ...] as
+    zeros_like_lanes does (ref * 0.0, so a non-finite ref gives NaN)."""
+    z3 = ref[..., :1] * 0.0 + torch.zeros(3, dtype=ref.dtype,
+                                          device=ref.device)
+    return z3, ref[..., 0] * 0.0
+
+
+@dataclasses.dataclass
+class ReservoirDI:
+    """Direct-illumination reservoir (reservoir.py:21-38): reconnection
+    point x2 / n2, its radiance l2 [N, 3]; w_sum, W, confidence m [N]."""
+
+    x2: torch.Tensor
+    n2: torch.Tensor
+    l2: torch.Tensor
+    w_sum: torch.Tensor
+    w: torch.Tensor
+    m: torch.Tensor
+
+    @staticmethod
+    def zeros_like_lanes(ref) -> "ReservoirDI":
+        z3, z = _zero_lanes(ref)
+        return ReservoirDI(x2=z3, n2=z3, l2=z3, w_sum=z, w=z, m=z)
+
+
+@dataclasses.dataclass
+class ReservoirGI:
+    """Global-illumination reservoir (reservoir.py:41-56): reconnection
+    vertex xn / nn and the radiance e3 arriving there [N, 3]; w_sum, W, m
+    [N]."""
+
+    xn: torch.Tensor
+    nn: torch.Tensor
+    e3: torch.Tensor
+    w_sum: torch.Tensor
+    w: torch.Tensor
+    m: torch.Tensor
+
+    @staticmethod
+    def zeros_like_lanes(ref) -> "ReservoirGI":
+        z3, z = _zero_lanes(ref)
+        return ReservoirGI(xn=z3, nn=z3, e3=z3, w_sum=z, w=z, m=z)
+
+
+@dataclasses.dataclass
+class SampleData:
+    """Per-pixel primary-hit record (reservoir.py:59-68): x1, n1, o
+    (toward the camera), l1 [N, 3]; mid, obj [N] int32."""
+
+    x1: torch.Tensor
+    n1: torch.Tensor
+    o: torch.Tensor
+    l1: torch.Tensor
+    mid: torch.Tensor
+    obj: torch.Tensor
+
+
+def _update(r, keys, accept_mask, wi, m_add, sample, seed):
+    """UpdateReservoir on an AoS reservoir (reservoir.py:71-123): the RNG
+    advances on every lane; returns (reservoir, took, seed)."""
+    u, seed = tea_random(seed)
+    w_sum = torch.where(accept_mask, r.w_sum + wi, r.w_sum)
+    m = torch.where(accept_mask, r.m + m_add, r.m)
+    one = torch.ones((), dtype=w_sum.dtype, device=w_sum.device)
+    take = accept_mask & (u < wi / torch.where(w_sum == 0.0, one, w_sum))
+    new = {k: torch.where(take[:, None], v, getattr(r, k))
+           for k, v in zip(keys, sample)}
+    return dataclasses.replace(r, w_sum=w_sum, m=m, **new), take, seed
+
+
+def update_reservoir_di(r: ReservoirDI, accept_mask, wi, m_add, x2, n2, l2,
+                        seed):
+    """Vectorized UpdateReservoir (reservoir.py:71-97,
+    Reservoir_v6.hlsl:57-80)."""
+    return _update(r, DI_VEC, accept_mask, wi, m_add, (x2, n2, l2), seed)
+
+
+def update_reservoir_gi(r: ReservoirGI, accept_mask, wi, m_add, xn, nn, e3,
+                        seed):
+    """Vectorized UpdateReservoir_GI (reservoir.py:100-123,
+    Reservoir_v6.hlsl:30-53)."""
+    return _update(r, GI_VEC, accept_mask, wi, m_add, (xn, nn, e3), seed)
+
+
+def is_valid_di(r: ReservoirDI):
+    """IsValidReservoir (reservoir.py:126-133, Sampler_v6.hlsl:7-14)."""
+    return ((m3.length(r.n2) > 0.0) & (m3.length(r.l2) > 0.0)
+            & (r.w_sum > 0.0) & (r.m > 0.0))
+
+
+def is_valid_gi(r: ReservoirGI):
+    """IsValidReservoir_GI (reservoir.py:136-138, Sampler_v6.hlsl:17-22)."""
+    return (r.w_sum > 0.0) & (r.m > 0.0)
+
+
+def _to_planes(rec) -> dict:
+    return to_planes({f.name: getattr(rec, f.name)
+                      for f in dataclasses.fields(rec)})
+
+
+def di_to_planes(r: ReservoirDI) -> dict:
+    """AoS ReservoirDI -> planar dict (reservoir.py:150-152)."""
+    return _to_planes(r)
+
+
+def planes_to_di(d: dict) -> ReservoirDI:
+    return ReservoirDI(**from_planes(d))
+
+
+def gi_to_planes(r: ReservoirGI) -> dict:
+    """AoS ReservoirGI -> planar dict (reservoir.py:161-163)."""
+    return _to_planes(r)
+
+
+def planes_to_gi(d: dict) -> ReservoirGI:
+    return ReservoirGI(**from_planes(d))
+
+
+def sdata_to_planes(s: SampleData) -> dict:
+    """AoS SampleData -> planar dict (reservoir.py:172-175)."""
+    return _to_planes(s)
+
+
+def planes_to_sdata(d: dict) -> SampleData:
+    return SampleData(**from_planes(d))

@@ -1,9 +1,12 @@
-"""ReSTIR DI building blocks, planar forms (port of
-royaltracer_dx_tpu/ops/restir.py:56-1011).
+"""ReSTIR DI building blocks (port of royaltracer_dx_tpu/ops/restir.py).
 
 Tracing with v6 hit semantics, reconnection p-hat, NEE / BSDF candidates,
-pairwise MIS, spatial rejection tests and reprojection — the functions the
-renderer and restir_gi call.
+pairwise MIS, spatial rejection tests and reprojection: the planar forms
+(:583-1011) that the renderer and restir_gi call, and the AoS forms
+(:281-580, :808, :1011) of the reference-shaped API, whose traces go
+through the same dispatch.  ``wants_chunking``, ``_wants_presort`` and
+``_chunked_rays`` (:109-168) are not ported: they cap the JAX package's
+trace memory, and every port path traces a batch in one piece (below).
 
 Trace dispatch: under traversal "bvh" every closest-hit and occlusion
 batch goes through the LBVH (ops/traverse.py), under "cluster" through
@@ -56,8 +59,13 @@ from royaltracer_dx_tpu_torch.ops.stream_trace import (
 )
 from royaltracer_dx_tpu_torch.ops.traverse import any_hit_bvh, closest_hit_bvh
 from royaltracer_dx_tpu_torch.scene.types import SceneArrays
+from royaltracer_dx_tpu_torch.utils import math3d as m3
 from royaltracer_dx_tpu_torch.utils import pvec as pv
-from royaltracer_dx_tpu_torch.utils.rng import tea_batch_at
+from royaltracer_dx_tpu_torch.utils.rng import (
+    tea_batch,
+    tea_batch_at,
+    tea_batch_major,
+)
 
 _T_MAX = 1e4
 # the miss sentinel as the int32 the passes carry (uint32 4294967294 -> -2)
@@ -216,6 +224,15 @@ def trace_occluded(scene, origins, dirs, t_min, t_max, cfg):
     return _any_dispatch(scene, origins, dirs, cfg, t_min, t_max)
 
 
+def visibility_check(scene, x1, n1, direction, dist, cfg):
+    """V in {0, 1} (:281-287, Sampler_v6.hlsl:86-104); AoS [N, 3]."""
+    o = x1 + m3.normalize(n1) * S_BIAS
+    t_max = torch.clamp_min(dist - 10.0 * S_BIAS, 2.0 * S_BIAS)
+    occ = trace_occluded(scene, o, direction, torch.zeros_like(dist), t_max,
+                         cfg)
+    return torch.where(occ, 0.0, 1.0)
+
+
 # --------------------------- planar core ---------------------------------
 
 
@@ -264,6 +281,10 @@ def fetch_material(scene: SceneArrays, mid) -> dict:
         metal=torch.where(sentinel, zero, mats.pr_pm_ps_pc[safe, 1]),
         lut=torch.where(z, zero + 1.0, mats.lut[safe]),
     )
+
+
+def _mat_index(mat: dict, idx) -> dict:
+    return {k: v[idx] for k, v in mat.items()}
 
 
 def trace_closest_p(scene: SceneArrays, origins, dirs, cfg: RenderConfig,
@@ -604,6 +625,222 @@ def reproject_to_prev_pixel_p(scene, world_pos, obj, prev_view, prev_proj,
     uy = 1.0 - ((clip_y * inv_w) * 0.5 + 0.5)
     # torch.round is round-half-to-even, like jnp.round; the clamp keeps
     # the int cast defined far off screen (still out of bounds)
+    px = torch.round(torch.clamp(ux * width, -1e9, 1e9)).to(torch.int32)
+    py = torch.round(torch.clamp(uy * height, -1e9, 1e9)).to(torch.int32)
+    neg = torch.full_like(px, -1)
+    return torch.where(good, px, neg), torch.where(good, py, neg)
+
+
+# ------------------------------ AoS forms --------------------------------
+
+
+def reconnect_di(x1, n1, x2, n2, l2, outgoing, mat):
+    """f G reconnection (:318-331, Sampler_v6.hlsl:106-131): the blended
+    BRDF x L2 x cos(x1) cos(x2) / dist^2, n2 flipped toward x1."""
+    d = x2 - x1
+    dist = m3.length(d)
+    dn = m3.normalize(d)
+    cos1 = torch.clamp_min(m3.dot(n1, dn), 0.0)
+    n2f = torch.where((m3.dot(n2, -dn) < 0.0)[..., None], -n2, n2)
+    cos2 = torch.clamp_min(m3.dot(n2f, -dn), 0.0)
+    f = bsdf.eval_bsdf_blend(mat["kd"], mat["ks"], mat["metal"],
+                             mat["rough"], mat["lut"], n1, -dn,
+                             m3.normalize(outgoing))
+    return f * l2 * (cos1 * cos2
+                     / torch.clamp_min(dist * dist, 1e-20))[..., None]
+
+
+def reconnect_gi(x1, n1, xn, e3, outgoing, mat):
+    """GI reconnection (:334-348, Sampler_v6.hlsl:134-161): the blended
+    BRDF x |cos(x1)| x E3, non-finite zeroed."""
+    dn = m3.normalize(xn - x1)
+    cos1 = torch.abs(m3.dot(n1, dn))
+    f = bsdf.eval_bsdf_blend(mat["kd"], mat["ks"], mat["metal"],
+                             mat["rough"], mat["lut"], n1, -dn,
+                             m3.normalize(outgoing))
+    fr = f * cos1[..., None] * e3
+    finite = torch.all(torch.isfinite(fr), dim=-1, keepdim=True)
+    return torch.where(finite, fr, 0.0)
+
+
+def get_p_hat_di(scene, x1, n1, x2, n2, l2, outgoing, mat, use_visibility,
+                 cfg):
+    """p-hat = |ReconnectDI| (x V) (:351-358, Sampler_v6.hlsl:163-171)."""
+    f = m3.linearize(reconnect_di(x1, n1, x2, n2, l2, outgoing, mat))
+    if use_visibility:
+        d = x2 - x1
+        f = f * visibility_check(scene, x1, n1, m3.normalize(d),
+                                 m3.length(d), cfg)
+    return f
+
+
+def get_p_hat_gi(scene, x1, n1, xn, e3, outgoing, mat, use_visibility, cfg):
+    """float3 p-hat for GI (:361-368, Sampler_v6.hlsl:173-181)."""
+    f = reconnect_gi(x1, n1, xn, e3, outgoing, mat)
+    if use_visibility:
+        d = xn - x1
+        v = visibility_check(scene, x1, n1, m3.normalize(d), m3.length(d),
+                             cfg)
+        f = f * v[..., None]
+    return f
+
+
+def nee_candidates(scene, x1, normal, outgoing, mat, strategy, seed,
+                   m_count: int):
+    """M NEE candidates a lane, batched (:374-438, SampleLightNEE,
+    Sampler_v6.hlsl:273-396, visibility off as in SampleRIS).  Returns
+    (dict of [N, M] p_hat, pdf_light, pdf_bsdf (area measure), dist and
+    [N, M, 3] x2, n2, emission, l_norm; seed)."""
+    n = x1.shape[0]
+    lights = scene.lights
+    us, seed = tea_batch(seed, 3 * m_count)
+    us = us.reshape(n, m_count, 3)
+    idx = light_sampling.select_light(lights, us[..., 0]).long()
+    wv = light_sampling.light_world_verts(lights, scene.object_to_world, idx)
+    bu, bv, bw = light_sampling.fold_barycentric(us[..., 1], us[..., 2])
+    point = (bu[..., None] * wv[..., 0, :] + bv[..., None] * wv[..., 1, :]
+             + bw[..., None] * wv[..., 2, :])
+    l_vec = point - x1[:, None, :]
+    dist2 = m3.dot(l_vec, l_vec)
+    dist = torch.sqrt(torch.clamp_min(dist2, EPSILON))
+    l_norm = l_vec / torch.clamp_min(dist, 1e-20)[..., None]
+    cr = m3.cross(wv[..., 1, :] - wv[..., 0, :], wv[..., 2, :] - wv[..., 0, :])
+    area = torch.abs(0.5 * m3.length(cr))
+    nl = m3.normalize(cr)
+    nl = torch.where((m3.dot(nl, -l_norm) < 0.0)[..., None], -nl, nl)
+    cos_x = m3.dot(normal[:, None, :], l_norm)
+    cos_y = m3.dot(nl, -l_norm)
+    g = torch.clamp_min(cos_y * cos_x / torch.clamp_min(dist2, EPSILON),
+                        EPSILON)
+    pdf_l = lights.weight[idx] / torch.clamp_min(area, EPSILON)
+    emission = lights.emission[idx]
+    matb = {k: v[:, None] if v.dim() == 1 else v[:, None, :]
+            for k, v in mat.items()}
+    nb = normal[:, None, :]
+    ob = m3.normalize(outgoing)[:, None, :]
+    brdf = bsdf.eval_bsdf_blend(matb["kd"], matb["ks"], matb["metal"],
+                                matb["rough"], matb["lut"], nb, -l_norm, ob)
+    pdf_b = bsdf.pdf_bsdf_blend(matb["ks"], matb["metal"], matb["rough"],
+                                nb, -l_norm, ob) \
+        * cos_y / torch.clamp_min(dist2, EPSILON)
+    pdf_b = torch.where(torch.isfinite(pdf_b), pdf_b, 0.0)
+    p_hat = m3.linearize(emission * brdf * g[..., None])
+    return dict(p_hat=p_hat, pdf_light=torch.clamp_min(pdf_l, EPSILON),
+                pdf_bsdf=pdf_b, x2=point, n2=nl, emission=emission,
+                l_norm=l_norm, dist=dist), seed
+
+
+def nee_candidates_p(scene, x1, normal, outgoing, mat, seed, m_count: int):
+    """Planar, candidate-major SampleLightNEE batch (:808-820): [M, N]
+    planes from ``tea_batch_major``'s draws 3i, 3i + 1, 3i + 2, and the
+    advanced seed.  The passes take one candidate at a time
+    (``nee_candidate_at_p``: the same values)."""
+    us, seed = tea_batch_major(seed, 3 * m_count)
+    return _nee_one(scene, x1, normal, outgoing, mat, us[0::3], us[1::3],
+                    us[2::3]), seed
+
+
+def bsdf_candidate(scene, x1, normal, outgoing, mat, strategy, seed, cfg):
+    """One BSDF light candidate: sample the lobe, trace, MIS pdfs
+    (:441-479, SampleLightBSDF, Sampler_v6.hlsl:199-271); p_hat = 0 where
+    the ray missed or hit a non-emitter.  Returns (dict, seed)."""
+    nrm = m3.normalize(outgoing)
+    sample, seed = bsdf.sample_bsdf(strategy, mat["ks"], mat["rough"], nrm,
+                                    normal, seed)
+    hit = trace_closest(scene, x1, sample, cfg, t_min=S_BIAS)
+    ke = fetch_material(scene, hit["mid"])["ke"]
+    is_light = m3.luminance_avg(ke) * 3.0 > EPSILON
+    l_vec = hit["pos"] - x1
+    dist2 = torch.clamp_min(m3.dot(l_vec, l_vec), EPSILON)
+    cos_t = m3.dot(hit["normal"], -sample)
+    # the reference's emissive pdf omits 1/area (quirk kept)
+    pdf_light = (m3.luminance_avg(ke) * 3.0 / 3.0) / torch.clamp_min(
+        scene.lights.total_weight, EPSILON)
+    brdf = bsdf.eval_bsdf_blend(mat["kd"], mat["ks"], mat["metal"],
+                                mat["rough"], mat["lut"], normal, -sample,
+                                nrm)
+    pdf_b = bsdf.pdf_bsdf_blend(mat["ks"], mat["metal"], mat["rough"],
+                                normal, -sample, nrm) * cos_t / dist2
+    pdf_b = torch.where(torch.isfinite(pdf_b), pdf_b, 0.0)
+    ndot = m3.dot(normal, sample)
+    p_hat = m3.linearize(brdf * ke * (ndot * cos_t / dist2)[..., None])
+    return dict(
+        p_hat=torch.where(is_light & hit["valid"], p_hat, 0.0),
+        pdf_light=torch.where(is_light, pdf_light, 0.0),
+        pdf_bsdf=pdf_b, x2=hit["pos"], n2=hit["normal"], emission=ke,
+    ), seed
+
+
+def spatial_candidate_pixels(px, py, width: int, height: int, radius,
+                             exponent, tries: int, seed):
+    """``tries`` weighted-disk neighbour picks a lane (:509-530,
+    GetRandomPixelCircleWeighted, Common_v6.hlsl:203-241); a pick of the
+    centre pixel is flagged, not redrawn (the JAX package's documented
+    deviation).  Returns (nx [N, T], ny [N, T], is_center [N, T], seed)."""
+    n = px.shape[0]
+    us, seed = tea_batch(seed, 2 * tries)
+    us = us.reshape(n, tries, 2)
+    r = radius * torch.pow(us[..., 0], exponent)
+    ang = us[..., 1] * 6.2831853
+    ox = (torch.cos(ang) * r).to(torch.int32)
+    oy = (torch.sin(ang) * r).to(torch.int32)
+    nx = mirror_clamp(px[:, None] + ox, width)
+    ny = mirror_clamp(py[:, None] + oy, height)
+    is_center = (nx == px[:, None]) & (ny == py[:, None])
+    return nx, ny, is_center, seed
+
+
+def reject_normal(n1, n2, threshold):
+    """RejectNormal (:536-538, Common_v6.hlsl:333-336)."""
+    return m3.dot(n1, n2) < threshold
+
+
+def reject_distance(x1, x2, cam_pos, threshold):
+    """RejectDistance (:541-546, Common_v6.hlsl:343-350)."""
+    d1 = m3.length(x1 - cam_pos)
+    d2 = m3.length(x2 - cam_pos)
+    rel = torch.abs(d1 - d2) / torch.clamp_min(torch.maximum(d1, d2), 1e-20)
+    return rel > threshold
+
+
+def reject_below_surface(d, n):
+    return m3.dot(d, n) < 0.0
+
+
+def jacobian_reconnection(x1_r, x1_q, x2q, n2q):
+    """Reconnection-shift Jacobian (:561-571, Sampler_v6.hlsl:48-68)."""
+    vq = x2q - x1_q
+    vr = x2q - x1_r
+    nrm = m3.normalize(n2q)
+    cos_q = torch.abs(m3.dot(m3.normalize(-vq), nrm))
+    cos_r = torch.abs(m3.dot(m3.normalize(-vr), nrm))
+    len_q = m3.dot(vq, vq)
+    len_r = m3.dot(vr, vr)
+    return ((cos_q / torch.clamp_min(cos_r, 1e-20))
+            * (len_r / torch.clamp_min(len_q, 1e-20)))
+
+
+def reproject_to_prev_pixel(scene, world_pos, obj, prev_view, prev_proj,
+                            width: int, height: int):
+    """GetBestReprojectedPixel_d (:1011-1037, Sampler_v6.hlsl:738-785):
+    current world position -> object space (the inverse of the current
+    transform) -> previous world -> previous clip -> pixel; (-1, -1)
+    behind the camera.  AoS world_pos [N, 3]; (px, py) int32.  The int
+    casts are clamped to +-1e9 as in ``reproject_to_prev_pixel_p``."""
+    idx = obj.long()
+    o2w = scene.object_to_world[idx]
+    prev = scene.prev_object_to_world[idx]
+    inv_rot = torch.linalg.inv(o2w[:, :3, :3])
+    local = torch.einsum("nij,nj->ni", inv_rot, world_pos - o2w[:, :3, 3])
+    pw = (torch.einsum("nij,nj->ni", prev[:, :3, :3], local)
+          + prev[:, :3, 3])
+    vp = prev_proj @ prev_view
+    clip = pw @ vp[:3, :3].T + vp[:3, 3]
+    w = pw @ vp[3, :3] + vp[3, 3]
+    good = w > 0.0
+    ndc = clip[:, :2] / torch.clamp_min(w, 1e-20)[:, None]
+    uv = ndc * 0.5 + 0.5
+    ux, uy = uv[:, 0], 1.0 - uv[:, 1]
     px = torch.round(torch.clamp(ux * width, -1e9, 1e9)).to(torch.int32)
     py = torch.round(torch.clamp(uy * height, -1e9, 1e9)).to(torch.int32)
     neg = torch.full_like(px, -1)

@@ -52,6 +52,7 @@ import time
 import numpy as np
 import torch
 
+from royaltracer_dx_tpu_torch.ops.bvh import morton_codes
 from royaltracer_dx_tpu_torch.ops.intersect import INF, Hit, as_planes3
 
 G = 64                 # triangles per cluster
@@ -829,3 +830,20 @@ def any_hit_stream(origins, dirs, accel: StreamAccel, t_min, t_max,
                             accel.blk_boxes)
     live = rows[:n, 7] > rows[:n, 6]
     return (slot[:n] >= 0) & live
+
+
+def coherence_order(origins, dirs, accel: StreamAccel):
+    """Spatial presort permutation (stream_trace.py:1705-1717): the Morton
+    codes of a point a quarter of the accel's extent along each ray, in a
+    stable sort, so that a chunk's rays get a compact frustum whatever the
+    caller's order.  AoS or planar rays; returns (order, inverse) int32.
+    No batch of the port is routed through it yet."""
+    o, d = as_planes3(origins), as_planes3(dirs)
+    lo = torch.amin(accel.top_lo, dim=0)
+    hi = torch.amax(accel.top_hi, dim=0)
+    step = 0.25 * torch.max(hi - lo)
+    pt = torch.stack([o[c] + d[c] * step for c in range(3)], dim=-1)
+    key = morton_codes(pt, lo, hi)
+    order = torch.sort(key, stable=True).indices
+    inverse = torch.sort(order, stable=True).indices
+    return order.to(torch.int32), inverse.to(torch.int32)

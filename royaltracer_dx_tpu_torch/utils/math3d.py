@@ -1,6 +1,7 @@
 """Small-vector math over [..., 3] tensors (port of
 royaltracer_dx_tpu/utils/math3d.py).  The renderer itself runs planar
-(utils/pvec.py); these serve the AoS boundaries and image output."""
+(utils/pvec.py); these serve the AoS forms (ops/bsdf.py, ops/restir.py,
+ops/reservoir.py) and image output."""
 
 from __future__ import annotations
 
@@ -28,3 +29,59 @@ def srgb_gamma(c: torch.Tensor) -> torch.Tensor:
     lo = 12.92 * c
     hi = 1.055 * torch.pow(torch.clamp_min(c, 1e-12), 1.0 / 2.4) - 0.055
     return torch.where(c <= 0.0031308, lo, hi)
+
+
+def reflect(i: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """HLSL reflect: i - 2 dot(n, i) n (math3d.py:29-31)."""
+    return i - 2.0 * dot(n, i)[..., None] * n
+
+
+def coordinate_system(n: torch.Tensor):
+    """Orthonormal (T1, T2) for normal ``n`` (math3d.py:34-47,
+    GGX_v6.hlsl:65-76): T1 = normalize(cross(z or x, N)), T2 = cross(N,
+    T1)."""
+    use_z = torch.abs(n[..., 2]) < 0.999
+    z_axis = torch.tensor([0.0, 0.0, 1.0], dtype=n.dtype, device=n.device)
+    x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=n.dtype, device=n.device)
+    axis = torch.where(use_z[..., None], z_axis, x_axis)
+    t1 = normalize(cross(axis, n))
+    return t1, cross(n, t1)
+
+
+def luminance_avg(c: torch.Tensor) -> torch.Tensor:
+    """The reference's scalar "luminance": the channel average
+    (math3d.py:50-52)."""
+    return (c[..., 0] + c[..., 1] + c[..., 2]) / 3.0
+
+
+def linearize(c: torch.Tensor) -> torch.Tensor:
+    """p-hat scalarization = vector length (math3d.py:55-57,
+    Sampler_v6.hlsl:1-5)."""
+    return length(c)
+
+
+def safe_multiply(s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """scalar x vec, zeroed where the product is not finite
+    (math3d.py:60-64, Common_v6.hlsl:151-160)."""
+    r = s[..., None] * v if s.dim() == v.dim() - 1 else s * v
+    finite = torch.all(torch.isfinite(r), dim=-1, keepdim=True)
+    return torch.where(finite, r, torch.zeros((), dtype=r.dtype,
+                                              device=r.device))
+
+
+def transform_points(m: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """4x4 matrix (column vectors) applied to points [..., 3]
+    (math3d.py:67-69)."""
+    return p @ m[:3, :3].T + m[:3, 3]
+
+
+def transform_dirs(m: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """4x4 matrix (column vectors) applied to directions [..., 3]
+    (math3d.py:72-74)."""
+    return d @ m[:3, :3].T
+
+
+def reinhard(c: torch.Tensor, exposure: float = 1.0) -> torch.Tensor:
+    """Reinhard tonemap (math3d.py:84-87, Common.hlsl:123-134)."""
+    c = c * exposure
+    return c / (c + 1.0)

@@ -102,3 +102,13 @@ def pixel_seed(x: torch.Tensor, y: torch.Tensor, stream: int,
         ^ ((st * _PRIME3_Y) & _M) ^ ((tm * _PRIME_TIME_Y) & _M)
     sx, sy = torch.broadcast_tensors(sx, sy)
     return torch.stack([sx, sy], dim=-1)
+
+
+def tea_randoms(seed: torch.Tensor, n: int):
+    """``n`` sequential draws, the reference's order: (u [..., n], seed)
+    (rng.py:65-71)."""
+    us = []
+    for _ in range(n):
+        u, seed = tea_random(seed)
+        us.append(u)
+    return torch.stack(us, dim=-1), seed

@@ -20,10 +20,12 @@ import pytest
 import torch
 
 from royaltracer_dx_tpu_torch.ops import cluster_traverse as tct
+from royaltracer_dx_tpu_torch.ops import mxu_trace as tmx
 from royaltracer_dx_tpu_torch.ops import stream_trace as tst
 from royaltracer_dx_tpu_torch.ops import traverse as ttr
 from royaltracer_dx_tpu_torch.scene import procedural as tproc
 from royaltracer_dx_tpu_torch.scene.procedural import menger_sponge
+from royaltracer_dx_tpu_torch.tools.mxu_cases import MXU_CASES, mxu_case
 
 
 def _card():
@@ -744,3 +746,27 @@ def test_cuda_stream_kernels_on_other_builds(method, occlusion):
     for k, p in zip(k_out, p_out):
         assert torch.equal(k, p)
     assert int((k_out[1] >= 0).sum()) > 1000
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MXU_CASES)
+def test_cuda_mxu_kernels_match_plain(case):
+    """mxu_closest and mxu_any (its tests too) equal their plain versions
+    bit for bit on tools/mxu_cases.py's adversarial inputs: zero-area and
+    duplicated triangles, all misses, non-finite rays, T = 1 and 200, odd
+    bounds; N = 1,001 rays."""
+    dev = _card()
+    tris, o, d, lo, hi = mxu_case(case, dev)
+    mt = tmx.build_mxu_tris(tris)
+    before = dict(tmx.LAUNCHES)
+    k_c = tmx.mxu_closest(o, d, lo, hi, mt)
+    k_a = tmx.mxu_any(o, d, lo, hi, mt, stats=True)
+    torch.cuda.synchronize()
+    assert tmx.LAUNCHES["mxu_closest"] == before["mxu_closest"] + 1
+    assert tmx.LAUNCHES["mxu_any"] == before["mxu_any"] + 1
+    p_c = tmx._closest_plain(o, d, lo, hi, mt.coeff, mt.center)
+    p_a = tmx._any_plain(o, d, lo, hi, mt.coeff, mt.center, mt.num_tris)
+    for k, p in zip((*k_c, *k_a), (*p_c, *p_a)):
+        assert k.dtype == p.dtype
+        assert torch.equal(_bits(k), _bits(p))
+    assert torch.equal(k_c[0] < 1e30, k_a[0])
