@@ -144,16 +144,21 @@ Phases (any failure exits non-zero and prints no result line):
               light (every third lane masked), and (b) the 32-triangle
               Cornell box at 512x512, each path with every count set to
               0 just before and read just after and the plain versions
-              refused (both kernels launched, nothing else); on a
-              65,536-lane sample of each batch the kernels' t, u, v,
-              triangle ids, occlusion and tests bit-equal to the plain
-              versions and held to tests/test_mxu_trace.py's bars against
-              brute force; each kernel, the stream and LBVH kernels on the
-              same rays and torch.matmul of the [4096, 10] @ [10, 4Tp]
-              product alone (TF32 off) timed on the whole batches beside
-              the bound (mxu_work); (c) tools/mxu_cases.py's adversarial
-              inputs, kernel against plain bit for bit; one function of
-              each AoS family (math3d, rng, bsdf, reservoir,
+              refused (both kernels launched, nothing else); on the
+              whole of each batch the kernels' t, u, v, triangle ids,
+              occlusion and tests bit-equal to the plain versions, and on
+              a 65,536-lane sample held to tests/test_mxu_trace.py's bars
+              against brute force; the share of pairs the kernels'
+              tensor-core filter kept (their counted builds), its
+              margin, and the kernels' resources; each kernel, the
+              stream and LBVH kernels on the same rays and torch.matmul
+              of the [4096, 10] @ [10, 4Tp] product alone (TF32 off)
+              timed on the whole batches beside the tensor-core and the
+              FP32-only bound (mxu_work), the three kernels' device time
+              alone also from torch.profiler; (c) tools/mxu_cases.py's
+              adversarial inputs, kernel against plain bit for bit; the
+              TF32 HMMA instructions in the library's SASS; one
+              function of each AoS family (math3d, rng, bsdf, reservoir,
               light_sampling, restir) and coherence_order on the card.
   9. the {"kernels": [...]} line (nine kernels), then
  10. the {"ok": true, ...} line.
@@ -2438,14 +2443,34 @@ def brute_agreement(label, k_hit, b_hit):
     return dict(agree=frac, same_tri=tri_frac, uv_max_diff=uv)
 
 
+def kernel_device_ms(fn, key, reps=5):
+    """Device time a call of ``fn`` spends in kernels whose name holds
+    ``key``, from torch.profiler over ``reps`` calls: without the host's
+    launch gaps, which CUDA events between calls of a small batch time
+    too.  None where the profiler records no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == DeviceType.CUDA and key in e.name]
+    return sum(us) / 1e3 / reps if us else None
+
+
 def mxu_path(scene_name, w, h, rates, mismatches, plain, dev):
     """One scene's camera batch and shadow batch: the main path through
     closest_hit_mxu / any_hit_mxu with every count set to 0 just before
     and read just after, the kernels against the plain versions
-    (``plain``, the functions NoPlain saved) on a 65,536-lane sample and
-    against brute force, and the times of the kernels, the stream and
-    LBVH kernels on the same rays, the plain versions and torch.matmul of
-    the product alone."""
+    (``plain``, the functions NoPlain saved) on the whole batches and
+    against brute force on a 65,536-lane sample, what the kernels' filter
+    kept (their counted builds), and the times of the kernels, the stream
+    and LBVH kernels on the same rays, the plain versions and
+    torch.matmul of the product alone."""
     from royaltracer_dx_tpu_torch import cli
     from royaltracer_dx_tpu_torch.camera import generate_rays
     from royaltracer_dx_tpu_torch.ops import mxu_trace as mx
@@ -2495,10 +2520,11 @@ def mxu_path(scene_name, w, h, rates, mismatches, plain, dev):
         sample = tuple(x[idx] for x in args)
         p_fn = plain[f"_{kind}_plain"]
         extra = () if kind == "closest" else (mt.num_tris,)
-        plain_ms, p_out = cuda_ms(lambda: p_fn(*sample, mt.coeff, mt.center,
+        plain_ms, p_out = cuda_ms(lambda: p_fn(*args, mt.coeff, mt.center,
                                                 *extra))
-        mxu_mismatch(name, tuple(x[idx] for x in outs[name]), p_out,
-                     f"{scene_name} {kind} sample", mismatches)
+        mxu_mismatch(name, outs[name], p_out, f"{scene_name} {kind} batch",
+                     mismatches)
+        del p_out
         k_sample = tuple(x[idx] for x in outs[name])
         if kind == "closest":
             agree = brute_agreement(scene_name, k_sample, closest_hit_brute(
@@ -2516,7 +2542,15 @@ def mxu_path(scene_name, w, h, rates, mismatches, plain, dev):
         ms, _ = cuda_ms(lambda: kern(*args, mt), reps=3)
         live = int((args[2] < args[3]).sum())
         work = mx.mxu_work(n, mt, live, int(tests.sum()), kind == "closest")
-        bound = st.bound_ms(work, *rates)
+        fp32 = st.bound_ms(work, *rates)
+        tc = mx.tc_bound_ms(work, *rates)
+        # the bound: the least time, with the sums on the tensor cores
+        bound = dict(fp32, fp32_bound_ms=fp32["bound_ms"], **tc,
+                     bound_ms=tc["tc_bound_ms"],
+                     bound_by="bytes" if tc["tc_bound_by"] == "bytes"
+                     else "operations")
+        counts = mx.filter_counts(*args, mt, closest=kind == "closest")
+        share = counts["candidates"] / max(counts["pairs"], 1)
         call = st.prepare_stream(args[0], args[1], acc, args[2], args[3],
                                  16)
         s_kern = st.stream_closest if kind == "closest" else st.stream_any
@@ -2540,20 +2574,41 @@ def mxu_path(scene_name, w, h, rates, mismatches, plain, dev):
         library()
         library_ms, _ = cuda_ms(library)
         del feats, prod
-        res[name] = dict(ms=ms, plain_ms=plain_ms, plain_lanes=len(idx),
+        # the three kernels' device time alone (Cornell's batch is shorter
+        # than a launch from Python)
+        device = {
+            "mxu": kernel_device_ms(lambda: kern(*args, mt), "trace_kernel"),
+            "stream": kernel_device_ms(
+                lambda: s_kern(*call, acc.blk_tris, acc.blk_boxes),
+                "stream_kernel"),
+            "bvh": kernel_device_ms(lambda: b_kern(packed, bvh),
+                                    f"bvh_{kind}_kernel")}
+        dev_txt = ", ".join(f"{k} {v:.4f}" if v is not None else
+                            f"{k} not measured" for k, v in device.items())
+        res[name] = dict(ms=ms, plain_ms=plain_ms, plain_lanes=n,
                          stream_ms=stream_ms, bvh_ms=bvh_ms,
-                         library_ms=library_ms, work=work, **bound, **agree)
+                         library_ms=library_ms, work=work, counts=counts,
+                         candidate_share=share, device_ms=device, **bound,
+                         **agree)
         print(f"  {scene_name} {name}: {n} lanes ({live} live) x "
               f"{mt.num_tris} triangles ({mt.padded} padded): kernel "
-              f"{ms:.3f} ms, bound {bound['bound_ms']:.3f} ms "
-              f"({bound['bound_by']}; no-FMA floor "
-              f"{bound['nofma_floor_ms']:.3f}; every padded pair "
-              f"{work['dense_fp32_ops'] / rates[0] * 1e3:.3f}); "
+              f"{ms:.3f} ms; tensor-core bound {tc['tc_bound_ms']:.3f} ms "
+              f"({tc['tc_bound_by']}: TF32 {tc['tc_tf32_ms']:.3f}, FP32 "
+              f"{tc['tc_fp32_ms']:.3f}; the kernel at "
+              f"{tc['tc_bound_ms'] / ms:.1%}), "
+              f"FP32-only bound {fp32['bound_ms']:.3f} ms "
+              f"(the kernel at {fp32['bound_ms'] / ms:.1%}; no-FMA floor "
+              f"{fp32['nofma_floor_ms']:.3f}; every padded pair "
+              f"{work['dense_fp32_ops'] / rates[0] * 1e3:.3f}); filter "
+              f"kept {counts['candidates']} of {counts['pairs']} pairs "
+              f"({share:.4%}), {counts['accepted']} accepted, "
+              f"{counts['exact_rays']} rays on the exact scan; "
               f"stream_{kind} {stream_ms:.3f} ms, bvh_{kind} {bvh_ms:.3f} "
-              f"ms on the same rays; torch.matmul of the product alone "
-              f"{library_ms:.3f} ms; plain {plain_ms:.3f} ms on {len(idx)} "
-              f"lanes, bit-equal to the kernel there; brute force {agree}",
-              flush=True)
+              f"ms on the same rays; device time alone (torch.profiler) "
+              f"{dev_txt} ms; torch.matmul of the product alone "
+              f"{library_ms:.3f} ms; plain {plain_ms:.3f} ms on the whole "
+              f"batch, bit-equal to the kernel; brute force on {len(idx)} "
+              f"lanes {agree}", flush=True)
     return res
 
 
@@ -2618,8 +2673,31 @@ def phase_mxu(rates, mismatches):
     from royaltracer_dx_tpu_torch.ops import mxu_trace as mx
     from royaltracer_dx_tpu_torch.tools.mxu_cases import MXU_CASES, mxu_case
 
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+
     dev = torch.device("cuda")
     out = {}
+    # the built library's SASS must hold the tensor-core products
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(st._nvcc()), "cuobjdump"), "-sass",
+         mx.BUILD_INFO["path"]], capture_output=True, text=True, timeout=120,
+        check=True).stdout
+    hmma = sorted(set(re.findall(r"HMMA\.\S*TF32\S*", sass)))
+    if not hmma:
+        fail("mxu_trace.cu's SASS holds no TF32 HMMA instruction")
+    out["sass"] = {k: sass.count(k) for k in hmma}
+    print(f"  SASS (cuobjdump): {out['sass']}", flush=True)
+    filt = mx.BUILD_INFO["filter"]
+    print(f"  filter: one TF32 pass a sum, margins "
+          f"2^{filt['kappa_log2']} F Q + 2^{filt['mu_log2']}, safe range "
+          f"2^{filt['safe_log2']}, Q over {filt['step']} triangles, "
+          f"{filt['rays_per_cta']} rays a CTA", flush=True)
+    for name, res in mx.BUILD_INFO["resources"].items():
+        print(f"  {name}: {res['ctas_per_sm']} CTAs of {res['threads']} "
+              f"threads resident per SM, {res['registers']} registers per "
+              f"thread, {res['local_bytes']} B spilled, "
+              f"{res['shared_bytes']} B of shared memory per CTA",
+              flush=True)
     # the plain versions refuse to run for the whole phase: a kernel that
     # fails to build or launch cannot hand off to them
     with NoPlain(mx, "_closest_plain", "_any_plain") as guard:
@@ -2654,13 +2732,17 @@ def phase_mxu(rates, mismatches):
             replaces_fn=fn,
             launches=sum(out[s]["launches"][name] for s, _, _ in MXU_SCENES),
             ms=big["ms"], bound_ms=big["bound_ms"], bound_by=big["bound_by"],
+            tc_bound_ms=big["tc_bound_ms"], fp32_bound_ms=big["fp32_bound_ms"],
             nofma_floor_ms=big["nofma_floor_ms"], plain_ms=big["plain_ms"],
             plain_lanes=big["plain_lanes"], library_ms=big["library_ms"],
             shape_lanes=out["menger"]["lanes"],
+            candidate_share=big["candidate_share"],
             paths={s: {k: out[s][name][k] for k in (
-                "ms", "bound_ms", "nofma_floor_ms", "plain_ms", "library_ms",
-                "stream_ms", "bvh_ms")} for s, _, _ in MXU_SCENES},
-            resources=mx.BUILD_INFO["resources"][name])
+                "ms", "bound_ms", "fp32_bound_ms", "nofma_floor_ms",
+                "plain_ms", "library_ms", "stream_ms", "bvh_ms",
+                "candidate_share", "device_ms")} for s, _, _ in MXU_SCENES},
+            resources=mx.BUILD_INFO["resources"][name],
+            filter=mx.BUILD_INFO["filter"])
     return out, entries
 
 

@@ -28,6 +28,12 @@ tensors they run the plain version.  Against the JAX package's
 ``jnp.dot`` the sums run in another order, so the two agree to a
 tolerance, not to bits.
 
+The kernels compute det, u*det and v*det on tensor cores in TF32 only
+as a conservative filter and confirm every pair it keeps in the plain
+order (the source's note derives the margins).  ``_candidates_plain`` is that
+filter in torch ops, with the operands rounded as ``cvt.rna.tf32`` does:
+the tests hold its margins against the plain products.
+
 Hit convention (JAX's one-hot epilogue): ``tri`` is the FIRST argmin of
 t over the padded triangles, so a ray that misses everything returns
 t = INF, tri 0 and triangle 0's u, v; u = (a + 0.0) * inv and v = (b +
@@ -198,6 +204,81 @@ def _any_plain(origins, dirs, t_min, t_max, coeff, center, num_tris):
     return torch.cat(occ), torch.cat(tests)
 
 
+# --------------------- the kernels' filter, in torch ops -------------------
+
+# the filter's constants, as csrc/mxu_trace.cu states them (a test holds
+# the two together): the margin factor's log2, the absolute term's, the
+# features' and coefficient sums' safe range, and the triangles of a step
+# (Q's maximum)
+KAPPA_LOG2 = -8
+MU_LOG2 = -59
+SAFE_LOG2 = 40
+FILTER_STEP = 16
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 values rounded to TF32 as ``cvt.rna.tf32.f32`` does: to
+    nearest, ties away from zero, on the bit pattern (10 stored mantissa
+    bits; the low 13 bits cleared)."""
+    b = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    r = (b + 0x1000) & 0xFFFFE000
+    return torch.where(r >= 2**31, r - 2**32, r).to(torch.int32).view(
+        torch.float32)
+
+
+def _approx_plane(feats, rows, col):
+    """One plane's sum over ``rows`` on TF32 operands, the products and
+    their sum in float64 (exact products, a sum far finer than the tensor
+    core's), rounded to float32."""
+    acc = None
+    for k in rows:
+        term = (_tf32(feats[k]).double()[:, None]
+                * _tf32(col[k]).double()[None, :])
+        acc = term if acc is None else acc + term
+    return acc.to(torch.float32)
+
+
+def _candidates_plain(origins, dirs, t_min, t_max, coeff, center, num_tris):
+    """The kernels' filter (csrc/mxu_trace.cu) on [R] rays against every
+    real triangle: which pairs it keeps for confirmation, and the
+    approximate det, a, b it sees with its margin for each.  A dead ray
+    keeps nothing; a live ray with a feature that is not finite or beyond
+    2^SAFE_LOG2 keeps every pair (the kernels' exact scan).  Returns a
+    dict: keep [R, T] bool, approx (3 x [R, T] float32), margin (3 x
+    [R, T] float64), safe and live [R] bool.  Only the tests use it."""
+    tp = coeff.shape[1] // 4
+    f = _features(origins, dirs, center)
+    fa = torch.stack([x.abs() for x in f], dim=1)
+    safe = (fa <= 2.0 ** SAFE_LOG2).all(dim=1)
+    live = t_min < t_max
+    approx, qsum = [], []
+    for p, rows in enumerate(PLANE_ROWS[:3]):
+        col = coeff[:, p * tp:(p + 1) * tp]
+        approx.append(_approx_plane(f, rows, col)[:, :num_tris])
+        qsum.append(torch.stack([col[k].double().abs() for k in rows])
+                    .sum(dim=0))
+    q = torch.stack([qsum[0], torch.maximum(qsum[1], qsum[2])])
+    ok = ((qsum[0] <= 2.0 ** SAFE_LOG2) & (qsum[1] <= 2.0 ** SAFE_LOG2)
+          & (qsum[2] <= 2.0 ** SAFE_LOG2))
+    q = torch.where(ok, q, torch.inf)
+    q = q.reshape(2, -1, FILTER_STEP).amax(dim=2).repeat_interleave(
+        FILTER_STEP, dim=1)[:, :num_tris]
+    kappa, mu = 2.0 ** KAPPA_LOG2, 2.0 ** MU_LOG2
+    fd = fa[:, :3].amax(dim=1).double()
+    fab = fa[:, :6].amax(dim=1).double()
+    md = kappa * fd[:, None] * q[0][None, :] + mu
+    mab = kappa * fab[:, None] * q[1][None, :] + mu
+    det, a, b = (x.double() for x in approx)
+    sgn = torch.where(torch.signbit(det), -1.0, 1.0)
+    aa, bb, dd = a * sgn, b * sgn, det.abs()
+    fails = (aa < -mab) | (bb < -mab) | (aa + bb - dd > md + 2.0 * mab)
+    far = (a.abs() > dd + md + mab) | (b.abs() > dd + md + mab)
+    keep = ~((dd > md) & fails) & ~far
+    keep = torch.where(safe[:, None], keep, True) & live[:, None]
+    return dict(keep=keep, approx=tuple(approx), margin=(md, mab, mab),
+                safe=safe, live=live)
+
+
 # -------------------------- the work of a call ---------------------------
 
 # FP32 operations per (ray, triangle) pair, counted from the plain
@@ -211,18 +292,31 @@ RAY_OPS, CLOSEST_RAY_OPS = 12, 32
 NONZERO_COEFFS = sum(len(r) for r in PLANE_ROWS)        # 19
 
 
+# the tensor-core yardstick: the work the kernels' filter does on the
+# tensor cores, the det, a and b sums' 15 multiply-adds a pair in one TF32
+# pass (30 operations), at the TF32 peak, beside the decision's 11 FP32
+# operations a pair (and the per-ray ones) at the FP32 peak, the two
+# pipes side by side
+TF32_PAIR_OPS = 2 * sum(len(r) for r in PLANE_ROWS[:3])   # 30
+DECISION_OPS = 11    # PAIR_OPS less the four sums' 33
+TF32_PEAK = 495e12   # H100 SXM, dense (NVIDIA's data sheet)
+
+
 def mxu_work(n_rays: int, tris: MxuTris, live=None, tests=None,
              closest: bool = True) -> dict:
-    """Bytes and FP32 operations of one closest_hit_mxu / any_hit_mxu
-    call.  ``dense_fp32_ops`` counts every (ray, padded triangle) pair,
-    the JAX package's product; ``fp32_ops`` what this call's data needs:
-    closest, every live ray (t_min < t_max; ``live`` rays, all if None)
-    against every real triangle; any hit, the ``tests`` the kernel's order
-    needs (its stats build, as ``_any_plain`` counts them; every live pair
-    if None).  Bytes: each ray read once (origin, direction, t_min, t_max:
-    32 B), the 19 nonzero coefficients of each padded triangle and the
-    centre, and the outputs written once (t, u, v and an int64 triangle
-    id; a byte of occlusion)."""
+    """Bytes and operations of one closest_hit_mxu / any_hit_mxu call.
+    ``dense_fp32_ops`` counts every (ray, padded triangle) pair, the JAX
+    package's product; ``fp32_ops`` what this call's data needs in the
+    plain order: closest, every live ray (t_min < t_max; ``live`` rays,
+    all if None) against every real triangle; any hit, the ``tests`` the
+    kernel's order needs (its stats build, as ``_any_plain`` counts them;
+    every live pair if None).  The tensor-core form of the same pairs:
+    ``tf32_ops`` for the filter's det, a and b sums, ``decision_fp32_ops``
+    for the rest.
+    Bytes: each ray read once (origin, direction, t_min, t_max: 32 B),
+    the 19 nonzero coefficients of each padded triangle and the centre,
+    and the outputs written once (t, u, v and an int64 triangle id; a
+    byte of occlusion)."""
     live = n_rays if live is None else int(live)
     tp, t = tris.padded, tris.num_tris
     pairs = live * t if tests is None or closest else int(tests)
@@ -230,9 +324,24 @@ def mxu_work(n_rays: int, tris: MxuTris, live=None, tests=None,
     nbytes = (n_rays * 32 + tp * NONZERO_COEFFS * 4 + 12
               + n_rays * (20 if closest else 1))
     return dict(bytes=nbytes, fp32_ops=pairs * PAIR_OPS + live * per_ray,
+                tf32_ops=pairs * TF32_PAIR_OPS,
+                decision_fp32_ops=pairs * DECISION_OPS + live * per_ray,
                 dense_fp32_ops=n_rays * (tp * PAIR_OPS + per_ray),
                 pairs=pairs, dense_pairs=n_rays * tp, lanes=n_rays,
                 live_lanes=live)
+
+
+def tc_bound_ms(work: dict, peak_flops: float, hbm: float) -> dict:
+    """The tensor-core bound of ``mxu_work``: the larger of the bytes over
+    the memory rate, the sums' TF32 operations over ``TF32_PEAK`` and the
+    decision's FP32 operations over ``peak_flops`` (the pipes run side by
+    side)."""
+    parts = {"bytes": work["bytes"] / hbm * 1e3,
+             "tf32": work["tf32_ops"] / TF32_PEAK * 1e3,
+             "fp32": work["decision_fp32_ops"] / peak_flops * 1e3}
+    by = max(parts, key=parts.get)
+    return dict(tc_bound_ms=parts[by], tc_bound_by=by,
+                tc_tf32_ms=parts["tf32"], tc_fp32_ms=parts["fp32"])
 
 
 # ----------------------------- CUDA build --------------------------------
@@ -246,8 +355,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "mxu_closest": [_P] * 10 + [_I] * 3 + [_P],
     "mxu_any": [_P] * 8 + [_I] * 3 + [_P],
+    "mxu_closest_counted": [_P] * 11 + [_I] * 3 + [_P],
+    "mxu_any_counted": [_P] * 9 + [_I] * 3 + [_P],
     "mxu_resources": [_I, ctypes.POINTER(_I)],
+    "mxu_filter_params": [ctypes.POINTER(_I)],
 }
+# what the counted builds add up, in order
+COUNT_KEYS = ("pairs", "candidates", "accepted", "exact_rays",
+              "packed_rays")
 
 
 def build_kernels():
@@ -269,7 +384,11 @@ def build_kernels():
             res[name] = dict(ctas_per_sm=vals[0], registers=vals[1],
                              threads=vals[2], shared_bytes=vals[3],
                              local_bytes=vals[4])
-        BUILD_INFO.update(info, resources=res)
+        vals = (ctypes.c_int * 5)()
+        lib.mxu_filter_params(vals)
+        BUILD_INFO.update(info, resources=res, filter=dict(
+            zip(("kappa_log2", "mu_log2", "safe_log2", "step",
+                 "rays_per_cta"), vals)))
         _LIB = lib
     return _LIB
 
@@ -299,16 +418,17 @@ def _check(origins, dirs, t_min, t_max, tris: MxuTris):
             raise ValueError("mxu kernel inputs must be contiguous")
 
 
-def _launch(name, origins, *args):
-    """Launch kernel ``name`` on PyTorch's current stream of the inputs'
-    device, made the current device for the launch."""
-    lib = build_kernels()
+def _launch(name, origins, *args, lib=None):
+    """Launch kernel ``name`` (its counted build: ``name`` + "_counted")
+    on PyTorch's current stream of the inputs' device, made the current
+    device for the launch; ``lib`` another build of the same source."""
+    lib = lib or build_kernels()
     with torch.cuda.device(origins.device):
         stream = torch.cuda.current_stream(origins.device).cuda_stream
         err = getattr(lib, name)(origins.data_ptr(), *args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
-    LAUNCHES[name] += 1
+    LAUNCHES[name.removesuffix("_counted")] += 1
 
 
 def mxu_closest(origins, dirs, t_min, t_max, tris: MxuTris):
@@ -351,6 +471,35 @@ def mxu_any(origins, dirs, t_min, t_max, tris: MxuTris, stats: bool = False):
                 tests.data_ptr() if stats else None, n, tris.num_tris,
                 tris.padded)
     return occ, tests
+
+
+def filter_counts(origins, dirs, t_min, t_max, tris: MxuTris,
+                  closest: bool = True) -> dict:
+    """What the kernels' filter did on one call: the counted build of
+    mxu_closest (or mxu_any) on CUDA tensors, its answers discarded.
+    Returns {COUNT_KEYS: int}: pairs filtered on the tensor cores, pairs
+    kept for confirmation, pairs accepted there, rays of the exact scan,
+    rays packed."""
+    _check(origins, dirs, t_min, t_max, tris)
+    if not origins.is_cuda:
+        raise ValueError("filter_counts: the filter runs in the kernels "
+                         "(CUDA tensors)")
+    n, dev = origins.shape[0], origins.device
+    counts = torch.zeros((len(COUNT_KEYS),), dtype=torch.int64, device=dev)
+    head = [dirs.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
+            tris.coeff.data_ptr(), tris.center.data_ptr()]
+    if closest:
+        outs = [torch.empty((n,), dtype=torch.float32, device=dev)
+                for _ in range(3)]
+        outs.append(torch.empty((n,), dtype=torch.int64, device=dev))
+    else:
+        outs = [torch.empty((n,), dtype=torch.bool, device=dev),
+                torch.empty((n,), dtype=torch.int32, device=dev)]
+    if n:
+        _launch("mxu_closest_counted" if closest else "mxu_any_counted",
+                origins, *head, *(x.data_ptr() for x in outs),
+                counts.data_ptr(), n, tris.num_tris, tris.padded)
+    return dict(zip(COUNT_KEYS, counts.tolist()))
 
 
 # ------------------------------- tracing --------------------------------

@@ -12,9 +12,19 @@ for bit.
     one_tri      T = 1
     t200         T = 200, not a multiple of the 128-column padding
     bounds       masked (t_max < t_min), equal, NaN and infinite bounds
+    edges        a fan of triangles that share edges, beside a soup; rays
+                 aimed exactly at vertices and edge midpoints, where u, v
+                 or u + v - 1 is zero or within rounding of it
+    tiny         triangles about 1e-20 across (their normals and the
+                 products of det underflow into subnormals) beside a
+                 soup, rays aimed at both
+    far          a soup at an offset of 1e6 (re-centred by the build), and
+                 rays that start within 1e-2 of a triangle, where t -> 0
+                 and o.n - v0.n cancels
 
-Every case has N = 1,001 rays (not a multiple of the kernels' 256-ray
-CTA); a third of the rays of the soups aim at a triangle's centroid.
+Every case has N = 1,001 rays (not a multiple of the kernels' 128-ray
+CTA); a third of the rays of the first soups aim at a triangle's
+centroid.
 """
 
 from __future__ import annotations
@@ -23,7 +33,7 @@ import numpy as np
 import torch
 
 MXU_CASES = ("zero_area", "duplicates", "all_miss", "non_finite", "one_tri",
-             "t200", "bounds")
+             "t200", "bounds", "edges", "tiny", "far")
 N_RAYS = 1001
 
 
@@ -85,6 +95,45 @@ def mxu_case(name: str, device, seed: int = 13):
                               np.full(n, np.nan), np.full(n, np.inf),
                               np.full(n, 1.5)]).astype(np.float32)
         t_min = np.where(k == 5, np.float32(np.nan), t_min)
+    elif name == "edges":
+        m = 24
+        ang = np.linspace(0.0, 2.0 * np.pi, m, endpoint=False)
+        ring = np.stack([np.cos(ang), np.sin(ang),
+                         0.1 * rng.normal(size=m)], axis=1) * 0.8
+        fan = np.stack([np.broadcast_to([0.0, 0.0, 0.05], (m, 3)), ring,
+                        np.roll(ring, -1, axis=0)], axis=1)
+        tris = np.concatenate([fan, _soup(rng, 200)]).astype(np.float32)
+        mids = 0.5 * (tris + np.roll(tris, -1, axis=1))
+        points = np.concatenate([tris.reshape(-1, 3),
+                                 mids.reshape(-1, 3)]).astype(np.float32)
+        o = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
+        d = points[rng.integers(0, len(points), n)] - o
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+    elif name == "tiny":
+        small = (rng.uniform(-1, 1, (200, 1, 3)) * 1e-14
+                 + rng.uniform(-1, 1, (200, 3, 3)) * 1e-20)
+        big = _soup(rng, 100)
+        tris = np.concatenate([small, big]).astype(np.float32)
+        o, d = _rays(rng, big, n)
+        aim = rng.random(n) < 0.5
+        d = np.where(aim[:, None], -o, d)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+    elif name == "far":
+        tris = (_soup(rng, 300).astype(np.float64) * 100.0
+                + 1e6).astype(np.float32)
+        o, d = _rays(rng, tris, n)
+        o = (o.astype(np.float64) * 100.0 + 1e6).astype(np.float32)
+        # a third start 1e-5 to 1e-2 before a point inside a triangle
+        near = np.arange(n) % 3 == 0
+        pick = rng.integers(0, len(tris), n)
+        w = rng.dirichlet(np.ones(3), n)
+        p = np.einsum("nk,nkc->nc", w, tris[pick].astype(np.float64))
+        dn = rng.normal(size=(n, 3))
+        dn /= np.linalg.norm(dn, axis=1, keepdims=True)
+        t0 = 10.0 ** rng.uniform(-5, -2, n)
+        o = np.where(near[:, None], (p - t0[:, None] * dn), o)
+        d = np.where(near[:, None], dn, d).astype(np.float32)
+        o = o.astype(np.float32)
     else:
         raise ValueError(f"unknown mxu case {name!r}")
 

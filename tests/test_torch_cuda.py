@@ -754,7 +754,8 @@ def test_cuda_mxu_kernels_match_plain(case):
     """mxu_closest and mxu_any (its tests too) equal their plain versions
     bit for bit on tools/mxu_cases.py's adversarial inputs: zero-area and
     duplicated triangles, all misses, non-finite rays, T = 1 and 200, odd
-    bounds; N = 1,001 rays."""
+    bounds, rays aimed at vertices and edges, triangles 1e-20 across, a
+    soup at an offset of 1e6 with t -> 0; N = 1,001 rays."""
     dev = _card()
     tris, o, d, lo, hi = mxu_case(case, dev)
     mt = tmx.build_mxu_tris(tris)
@@ -770,3 +771,65 @@ def test_cuda_mxu_kernels_match_plain(case):
         assert k.dtype == p.dtype
         assert torch.equal(_bits(k), _bits(p))
     assert torch.equal(k_c[0] < 1e30, k_a[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("closest", [True, False])
+def test_cuda_mxu_filter_counts(closest):
+    """The counted builds of mxu_closest / mxu_any give the same answers
+    and account for every live ray (packed or left to the exact scan) and
+    pair: accepted <= kept <= filtered <= live rays x triangles, and, on
+    ``non_finite``, some rays on the exact scan."""
+    dev = _card()
+    tris, o, d, lo, hi = mxu_case("non_finite", dev)
+    mt = tmx.build_mxu_tris(tris)
+    c = tmx.filter_counts(o, d, lo, hi, mt, closest=closest)
+    torch.cuda.synchronize()
+    live = int((lo < hi).sum())
+    assert c["packed_rays"] + c["exact_rays"] == live
+    assert c["exact_rays"] > 0
+    assert 0 < c["accepted"] <= c["candidates"] <= c["pairs"]
+    assert c["pairs"] <= c["packed_rays"] * mt.num_tris
+    if closest:
+        assert c["pairs"] == c["packed_rays"] * mt.num_tris
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", ["near_first", "far_first", "far_only"])
+def test_cuda_mxu_hits_beyond_inf(order):
+    """Triangles 1.1e30 along x (their coefficients beyond the filter's
+    safe range, so every pair of their step is kept) hit by axis rays
+    with t_max = inf at t > INF = 1e30: those rays leave the tensor-core
+    path for the exact scan, where misses compete at INF (the first
+    miss, or the first padded column, wins).  Both kernels equal their
+    plain versions bit for bit, and the exact scan ran."""
+    dev = _card()
+
+    def tri_at(x):
+        return [[x, -5e3, -5e3], [x, 5e3, -5e3], [x, 0.0, 5e3]]
+
+    near = [[0.5, -0.2, -0.2], [0.5, 0.2, -0.2], [0.5, 0.0, 0.3]]
+    tris = {"near_first": [near, tri_at(1.1e30), tri_at(-1.1e30)],
+            "far_first": [tri_at(1.1e30), near, tri_at(-1.1e30)],
+            "far_only": [tri_at(1.1e30)]}[order]
+    rng = np.random.default_rng(4)
+    n = 1001
+    o = np.zeros((n, 3), np.float32)
+    o[:, 1:] = rng.uniform(-0.4, 0.4, (n, 2))
+    d = np.zeros((n, 3), np.float32)
+    d[:, 0] = np.where(np.arange(n) % 5 == 0, -1.0, 1.0)
+    hi = np.where(np.arange(n) % 2 == 0, np.inf, 1e4).astype(np.float32)
+    o, d, lo, hi = (torch.as_tensor(x, device=dev) for x in (
+        o, d, np.full(n, 1e-4, np.float32), hi))
+    mt = tmx.build_mxu_tris(torch.as_tensor(np.array(tris, np.float32),
+                                            device=dev))
+    k_c = tmx.mxu_closest(o, d, lo, hi, mt)
+    k_a = tmx.mxu_any(o, d, lo, hi, mt, stats=True)
+    counts = tmx.filter_counts(o, d, lo, hi, mt)
+    torch.cuda.synchronize()
+    p_c = tmx._closest_plain(o, d, lo, hi, mt.coeff, mt.center)
+    p_a = tmx._any_plain(o, d, lo, hi, mt.coeff, mt.center, mt.num_tris)
+    for k, p in zip((*k_c, *k_a), (*p_c, *p_a)):
+        assert torch.equal(_bits(k), _bits(p))
+    assert counts["exact_rays"] > 0
+    assert bool(k_a[0].any())

@@ -26,7 +26,18 @@ multiply-adds), so the two agree to a tolerance, not to bits:
 Occlusion is compared lane for lane on >= 0.999 of the rays (measured:
 all), and the port is also held to test_mxu_trace.py's own bars against
 its brute force.
+
+tools/mxu_cases.py's adversarial inputs are held against the JAX package
+too, on its coefficients carried across, with the bars of
+``test_mxu_cases_match_jax``; and the kernels' tensor-core filter, in
+torch ops (``_candidates_plain``), is held to its promise: it never
+drops a pair that the plain decision accepts, and its margins cover the
+difference between its TF32 sums and the plain ones.
 """
+
+import os
+import re
+
 
 import jax.numpy as jnp
 import numpy as np
@@ -41,6 +52,7 @@ from royaltracer_dx_tpu_torch.ops.intersect import (
     any_hit_brute,
     closest_hit_brute,
 )
+from royaltracer_dx_tpu_torch.tools.mxu_cases import MXU_CASES, mxu_case
 from test_mxu_trace import random_rays, random_soup
 from test_torch_restir import one_torch_thread  # noqa: F401 (autouse)
 
@@ -251,3 +263,222 @@ def test_no_triangles_raise():
                         num_tris=0)
     with pytest.raises(ValueError):
         tmx.closest_hit_mxu(torch.zeros((4, 3)), torch.ones((4, 3)), empty)
+
+
+# ------------------- the adversarial cases against JAX --------------------
+
+TWINS = {"duplicates": 150}   # a triangle's twins: the same index modulo
+# cases whose rays all aim at a vertex or an edge: their bars (hit state,
+# the triangle up to a shared edge), just under the measured 0.8931 and
+# 0.8661 of the rays
+BOUNDARY_CASES = {"edges": (0.89, 0.86)}
+U32 = 2.0 ** -24
+
+
+def carried(jt):
+    """JAX's coefficients on the CPU in the port's MxuTris."""
+    return convert.mxu_tris_from_numpy(
+        {"coeff": np.asarray(jt.coeff), "center": np.asarray(jt.center),
+         "num_tris": jt.num_tris}, device="cpu")
+
+
+def order_bounds(o, d, mt, tri, t, u, v):
+    """How far the two packages' t, u, v may lie apart at triangle ``tri``
+    from rounding alone: each sum of n products rounds within n u S in
+    each (S = sum |f_k q_k|), the cross product o x d rounds with fused
+    multiply-adds in XLA and without in the port (2 u G_k, G_k its two
+    products' magnitudes), and both errors pass through the division by
+    det.  Returns (bound_t, bound_u, bound_v) as numpy arrays."""
+    f = tmx._features(o, d, mt.center)
+    oc = [o[:, k] - mt.center[k] for k in range(3)]
+    g = [(oc[(k + 1) % 3] * d[:, (k + 2) % 3]).abs()
+         + (oc[(k + 2) % 3] * d[:, (k + 1) % 3]).abs() for k in range(3)]
+    feats = torch.stack([*f, torch.ones_like(f[0])], dim=1).double()
+    err = torch.zeros_like(feats)
+    err[:, 3:6] = torch.stack(g, dim=1).double()
+    tp, coeff = mt.padded, mt.coeff.double()
+    bound, det = [], None
+    for p, rows in enumerate(tmx.PLANE_ROWS):
+        col = coeff[:, p * tp:(p + 1) * tp][:, tri].T[:, list(rows)]
+        x = feats[:, list(rows)]
+        bound.append(U32 * (2 * len(rows) * (x * col).abs().sum(dim=1)
+                            + 2 * (err[:, list(rows)] * col.abs()).sum(dim=1)))
+        if p == 0:
+            det = (x * col).sum(dim=1).abs()
+    bd, ba, bb, bc = (b.numpy() for b in bound)
+    det = det.numpy()
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return tuple((bx + np.abs(x) * bd) / det + 2 * U32 * np.abs(x)
+                     for bx, x in ((bc, t), (ba, u), (bb, v)))
+
+
+@pytest.mark.parametrize("case", MXU_CASES)
+def test_mxu_cases_match_jax(case):
+    """tools/mxu_cases.py's inputs through the port's plain versions and
+    the JAX package's closest_hit_mxu / any_hit_mxu on the same
+    coefficients.  Bars:
+
+    * hit state and triangle equal on >= MIN_AGREE of the rays; on
+      ``duplicates`` either twin counts (reversed twins tie in t to
+      within rounding, and the two summation orders break the tie
+      differently: 0.871 of the rays agree on the index itself); on
+      ``edges``, where every ray aims at a vertex or an edge midpoint,
+      whether it hits and which triangle of a shared edge it hits are
+      decided by rounding: measured, the hit state agrees on 0.8931 of
+      the rays, the triangle on 0.8591 and, counting triangles that
+      share an edge as one, on 0.8661; the bars ``BOUNDARY_CASES`` lie
+      just under those, and each disagreement must be a boundary hit:
+      the nearer of the two answers has min(u, v, 1 - u - v) <= UV_TOL
+      (measured <= 1.5e-6);
+    * t within T_TOL max(1, |t|), u and v within UV_TOL where both hit
+      the same triangle (t within T_TOL on twins) -- or, where the sums
+      cancel (grazing rays, t -> 0: ROADMAP.md §C), within the two
+      packages' rounding bound ``order_bounds`` (measured <= 0.27 of it;
+      the fixed bars alone miss on up to 14 of a case's hits, by up to
+      3.5e-3 in u on ``non_finite``);
+    * each package's occlusion equal to its own closest hit state, so
+      occlusion agrees wherever the hit state does."""
+    tris, o, d, lo, hi = mxu_case(case, "cpu")
+    jt = jmx.build_mxu_tris(jnp.asarray(tris.numpy()))
+    mt = carried(jt)
+    jx = [jnp.asarray(x.numpy()) for x in (o, d, lo, hi)]
+    ht = tmx.closest_hit_mxu(o, d, mt, lo, hi)
+    hj = jmx.closest_hit_mxu(jx[0], jx[1], jt, jx[2], jx[3])
+    occ_t = tmx.any_hit_mxu(o, d, mt, lo, hi).numpy()
+    occ_j = np.asarray(jmx.any_hit_mxu(jx[0], jx[1], jt, jx[2], jx[3]))
+    tt, tj = ht.t.numpy(), np.asarray(hj.t)
+    ut, vt = ht.u.numpy(), ht.v.numpy()
+    uj, vj = np.asarray(hj.u), np.asarray(hj.v)
+    kt, kj = ht.tri.numpy(), np.asarray(hj.tri)
+    ht_, hj_ = tt < INF, tj < INF
+    np.testing.assert_array_equal(occ_t, ht_)
+    np.testing.assert_array_equal(occ_j, hj_)
+    m = TWINS.get(case)
+    same_key = (kt % m == kj % m) if m else kt == kj
+    if case in BOUNDARY_CASES:   # triangles that share an edge count as one
+        verts = tris.numpy()
+        shared = (verts[kt][:, :, None, :] == verts[kj][:, None, :, :]).all(
+            axis=3).any(axis=2).sum(axis=1) >= 2
+        same_key = same_key | shared
+    agree = (ht_ == hj_) & (~ht_ | same_key)
+    if case in BOUNDARY_CASES:
+        state_bar, tri_bar = BOUNDARY_CASES[case]
+        near_t = ht_ & (~hj_ | (tt <= tj))
+        with np.errstate(invalid="ignore"):
+            bary = np.where(near_t,
+                            np.minimum(np.minimum(ut, vt), 1 - ut - vt),
+                            np.minimum(np.minimum(uj, vj), 1 - uj - vj))
+        assert (np.abs(bary[~agree]) <= UV_TOL).all()
+        assert (ht_ == hj_).mean() >= state_bar
+        assert agree.mean() >= tri_bar
+    else:
+        assert agree.mean() >= MIN_AGREE
+    both = ht_ & hj_ & same_key
+    same = both & (kt == kj)
+    bt, bu, bv = order_bounds(o, d, mt, ht.tri, tt, ut, vt)
+    with np.errstate(invalid="ignore"):   # misses' u, v may be NaN
+        t_bar = np.maximum(T_TOL * np.maximum(1.0, np.abs(tj)), bt)
+        assert (np.abs(tt - tj)[both] <= t_bar[both]).all()
+        assert (np.abs(ut - uj)[same] <= np.maximum(UV_TOL, bu)[same]).all()
+        assert (np.abs(vt - vj)[same] <= np.maximum(UV_TOL, bv)[same]).all()
+
+
+# -------------------- the kernels' filter, in torch ops -------------------
+
+
+def filter_inputs(case):
+    """(tri_verts, origins, dirs, t_min, t_max) of a filter case on the
+    CPU: test_mxu_trace.py's soup (1,024 random rays), menger's
+    triangles with 32x32 camera rays, or a tools/mxu_cases.py case."""
+    if case == "soup":
+        tris = t_(random_soup(3000))
+        o, d = (t_(x) for x in random_rays(1024))
+    elif case == "menger":
+        from royaltracer_dx_tpu_torch import cli
+        from royaltracer_dx_tpu_torch.camera import generate_rays
+
+        scene, camera = cli.build_scene("menger")
+        tris = scene.flatten(scene.build_materials(device="cpu"),
+                             device="cpu").tri_verts
+        cam = {k: torch.as_tensor(x) for k, x in camera.matrices(1.0).items()}
+        o, d = generate_rays(cam, 32, 32)
+    else:
+        return mxu_case(case, "cpu")
+    n = o.shape[0]
+    return (tris, o.contiguous(), d.contiguous(), torch.full((n,), 1e-4),
+            torch.full((n,), 1e4))
+
+
+@pytest.mark.parametrize("case", ("soup", "menger") + MXU_CASES)
+def test_filter_keeps_every_accepted_pair(case):
+    """The filter of csrc/mxu_trace.cu (``_candidates_plain``, one TF32
+    pass) keeps every pair that ``_decide`` accepts, and
+    for every ray whose features are in its safe range its margin covers
+    |TF32 sum - plain sum| in each plane it reads (det, a, b).  The
+    simulation sums exact products in float64, so it checks the TF32
+    rounding's share of the bound; the tensor core's own accumulation is
+    held on the card, where the kernels must equal the plain versions bit
+    for bit."""
+    tris, o, d, lo, hi = filter_inputs(case)
+    mt = tmx.build_mxu_tris(tris)
+    kept = 0
+    for s in range(0, o.shape[0], 256):
+        sl = slice(s, s + 256)
+        r = tmx._candidates_plain(o[sl], d[sl], lo[sl], hi[sl], mt.coeff,
+                                  mt.center, mt.num_tris)
+        f = tmx._features(o[sl], d[sl], mt.center)
+        plain = tmx._products(f, mt.coeff)
+        ok, _ = tmx._decide(*plain, lo[sl, None], hi[sl, None])
+        assert not (ok[:, :mt.num_tris] & ~r["keep"]).any()
+        safe = r["safe"]
+        for x, y, margin in zip(r["approx"], plain, r["margin"]):
+            diff = (x.double() - y[:, :mt.num_tris].double()).abs()
+            assert (diff[safe] <= margin[safe]).all()
+        kept += int(r["keep"].sum())
+    if case == "menger":   # what the kernels confirm (measured ~0.3%)
+        assert kept < 0.01 * o.shape[0] * mt.num_tris
+
+
+def test_filter_constants_match_source():
+    """The filter's constants in ops/mxu_trace.py are csrc/mxu_trace.cu's."""
+    src = os.path.join(os.path.dirname(tmx.__file__), os.pardir, "csrc",
+                       "mxu_trace.cu")
+    with open(src) as fh:
+        found = dict(re.findall(r"constexpr int (\w+) = (-?\d+);", fh.read()))
+    assert int(found["KAPPA_LOG2"]) == tmx.KAPPA_LOG2
+    assert int(found["MU_LOG2"]) == tmx.MU_LOG2
+    assert int(found["SAFE_LOG2"]) == tmx.SAFE_LOG2
+    assert int(found["STEP"]) == tmx.FILTER_STEP
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    """``_tf32`` keeps 10 stored mantissa bits, rounding to nearest with
+    ties away from zero, as cvt.rna.tf32.f32 does."""
+    x = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12,
+                      1 + 3 * 2.0 ** -11, 0.0, -0.0, 3.0], dtype=torch.float32)
+    want = [1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0, 1 + 2.0 ** -9, 0.0, -0.0,
+            3.0]
+    got = tmx._tf32(x)
+    assert got.tolist() == want
+    assert torch.signbit(got[5])
+    assert not (got.view(torch.int32) & 0x1FFF).any()
+
+
+def test_mxu_work_tensor_core_bound():
+    """mxu_work's two yardsticks: 44 FP32 operations a pair in the plain
+    order; on tensor cores the filter's det, a and b sums in one TF32 pass
+    (30 operations a pair) at 495 TFLOP/s beside the decision's 11 FP32
+    operations a pair, which bind."""
+    mt = tmx.build_mxu_tris(t_(random_soup(200)))
+    w = tmx.mxu_work(100_000, mt, live=60_000)
+    pairs = 60_000 * 200
+    assert w["pairs"] == pairs
+    assert w["fp32_ops"] == pairs * 44 + 60_000 * (12 + 32)
+    assert w["tf32_ops"] == pairs * 30
+    assert w["decision_fp32_ops"] == pairs * 11 + 60_000 * (12 + 32)
+    b = tmx.tc_bound_ms(w, 66.9e12, 3.35e12)
+    # 1.64e-13 s a pair against 6.1e-14 (TF32) and 52 B a ray (bytes)
+    assert b["tc_bound_by"] == "fp32"
+    assert b["tc_tf32_ms"] == pytest.approx(pairs * 30 / 495e12 * 1e3)
+    assert b["tc_bound_ms"] == b["tc_fp32_ms"] == pytest.approx(
+        w["decision_fp32_ops"] / 66.9e12 * 1e3)
