@@ -6,8 +6,9 @@ Phases (any failure exits non-zero and prints no result line):
 
   1. device   name and power limit from nvidia-smi; build the kernels of
               royaltracer_dx_tpu_torch/csrc/ (stream_trace.cu,
-              bvh_traverse.cu, cluster_traverse.cu, mxu_trace.cu: one nvcc
-              a source, started together) and print their resources
+              bvh_traverse.cu, cluster_traverse.cu, mxu_trace.cu,
+              brute_trace.cu: one nvcc a source, started together) and
+              print their resources
   2. kernels  each CUDA kernel against its plain PyTorch version on the
               same inputs on the card -- (a) the menger accel with 1M
               random rays, closest, and any-hit with half the lanes
@@ -23,7 +24,9 @@ Phases (any failure exits non-zero and prints no result line):
   3. frames   RestirRenderer on the menger scene at 1920x1080 with the
               default RenderConfig: one warm-up frame and 4 timed frames,
               with the launch counters set to 0 just before and read just
-              after; then one more frame whose kernel launches are timed
+              after (both stream kernels, no brute-force kernel: the
+              scattered batches hold 2,073,600 >= 2^20 rays); then one
+              more frame whose kernel launches are timed
               with CUDA events, with each batch's work (visited blocks,
               hot clusters, candidate pairs, valid lanes) and bound
               printed.  Each kernel's output on the largest batch
@@ -41,9 +44,15 @@ Phases (any failure exits non-zero and prints no result line):
               (the frame counter must continue); one more frame with
               timed launches and timed prepare_stream calls, and each
               kernel against its plain version on that frame's largest
-              batch; (b) dragon (871,200 triangles, 512 blocks) through
-              cli.main --animate for 3 frames, each with a refit update()
-              on the card, then stream_closest against brute force on
+              batch; one more frame keeping every presorted batch
+              (every stream batch of the windowed scene goes through
+              coherence_order: counted), on each coherence_order's time,
+              the stream kernel on the presorted and on the unsorted
+              rays, and the two traces equal after the inverse off
+              exact-t ties (counted); (b) dragon (871,200 triangles,
+              512 blocks) through cli.main --animate for 3 frames, each
+              with a refit update() on the card, then stream_closest
+              against brute force on
               65,536 of a frame's rays and both kernels against their
               plain versions on the refitted accel; (c) terrain: the
               heightfield(708) accel (999,698 triangles) built on the
@@ -61,8 +70,10 @@ Phases (any failure exits non-zero and prints no result line):
               against its plain version on that frame's largest batch,
               and the any-hit walk beside phase 4's ReSTIR sponza frame;
               (b) bench.py's cornell_megakernel row (512x512, 5
-              bounces): frame ms and Mrays/s; (c) Renderer.render_many(3)
-              against 3 render() calls on a 256x256 menger frame, bit for
+              bounces): frame ms and Mrays/s, brute-force launches and no
+              stream launch (32 triangles: the JAX package's
+              decision); (c) Renderer.render_many(3) against 3 render()
+              calls on a 256x256 menger frame, bit for
               bit, and DiOracle.render_many against render() calls; (d)
               the accuracy rows of bench.py:400-440, time-capped above
               the CPU harness's frame counts: the DiOracle against DI-only
@@ -71,18 +82,27 @@ Phases (any failure exits non-zero and prints no result line):
               96x96 (0.94 < rel_mean < 1.04, rmse < 0.08), printed beside
               BENCH_r05.json's rows for the JAX package; (e) two 96x54
               megakernel menger frames on the card against the CPU.
-  6. sharding and LBVH: (a) the 1920x1080 menger frame (phase 3's main
-              path) on 1, 2 and 4 bands of one card -- RestirRenderer and
+  6. sharding and LBVH: (a) the menger frame (phase 3's main path) on
+              1, 2 and 4 bands of one card -- RestirRenderer and
               ShardedRestirRenderer(devices=[cuda:0] * n) -- 3 frames
               with a static camera, then a frame after a camera move
-              within the 20-row halo and one after a move beyond it; each
-              image against one device's (rtol=1e-5, atol=1e-6 for the
-              static and the within-halo frames), frame times, stream
-              launches per frame and peak memory, and a checkpoint save
-              and load of the 2-band renderer; (b) sponza through cli.main
-              --bvh (2 ReSTIR frames) and --bvh --renderer megakernel (1
-              frame), with the LBVH launch counters set to 0 just before
-              each and read just after; every bvh_closest / bvh_any
+              within the 20-row halo and one after a move beyond it;
+              frame times, launches per frame (the routes checked) and
+              peak memory.  At 1280x720 every band count's scattered
+              batches are under 2^20 rays and take brute force: each
+              banded image within rtol=1e-5, atol=1e-6 of one device's
+              (static and within the halo), and a checkpoint save and
+              load of the 2-band renderer.  At 1920x1080 one device's
+              2,073,600-ray scattered batches take the stream kernels and
+              a band's brute force (the JAX rule decides on a band's own
+              batch; the routes differ on edges): 4 bands within that
+              tolerance of 2 bands, each banded image within
+              MIXED_ROUTE_LIMITS of one device's, and the lanes where the
+              two routes differ on a band's largest scattered batch;
+              (b) sponza through cli.main --bvh (2 ReSTIR frames) and
+              --bvh --renderer megakernel (1 frame), with the LBVH
+              launch counters set to 0 just before each and read just
+              after; every bvh_closest / bvh_any
               launch held against its plain version on a fixed sample of
               65,536 of its lanes (t, u, v, triangle ids and occlusion
               bit-equal; for closest also the node, triangle and
@@ -160,8 +180,26 @@ Phases (any failure exits non-zero and prints no result line):
               TF32 HMMA instructions in the library's SASS; one
               function of each AoS family (math3d, rng, bsdf, reservoir,
               light_sampling, restir) and coherence_order on the card.
-  9. the {"kernels": [...]} line (nine kernels), then
- 10. the {"ok": true, ...} line.
+  9. brute    brute_closest / brute_any (ops/brute_trace.py): (c) the
+              routes, each path with every count set to 0 just before
+              and read just after and the plain versions refused --
+              cli.main with its defaults (Cornell, 512x512, 3 frames):
+              both brute-force kernels and nothing else; one 512x512
+              menger ReSTIR frame: brute_closest on its scattered
+              batches, the stream kernels on the rest, no brute_any;
+              (a) both kernels (any-hit also in its counted build)
+              against the plain versions bit for bit on Cornell's
+              512x512 camera batch and a shadow batch from its hits
+              (every third lane masked), the busiest (most live rays)
+              of that frame's scattered 262,144-ray batches and a
+              shadow batch from it, the CLI run's busiest any-hit batch
+              and tools/brute_cases.py's inputs; (b) each kernel timed
+              on those batches (CUDA
+              events and torch.profiler device time) beside brute_work's
+              bound and no-FMA floor and the stream, LBVH and MXU
+              kernels on the same rays.
+ 10. the {"kernels": [...]} line (eleven kernels), then
+ 11. the {"ok": true, ...} line.
 
 --out DIR writes the rendered images there as PNGs (else the scenes
 phase writes its CLI outputs into a temporary directory).  --profile runs
@@ -478,6 +516,9 @@ def phase_frames(renderer):
         prev = now
         print(f"  frame {i}{' (warm-up)' if i == 0 else ''}: {ms:.3f} ms, "
               f"launches {grew}", flush=True)
+    # 1080p scattered batches are >= 2^20 rays: the JAX package's rule
+    # keeps them on the stream kernels
+    read_launches("the 1080p menger frames", zero=tuple(BRUTE_KERNELS))
     return frame_ms, dict(st.LAUNCHES)
 
 
@@ -680,21 +721,21 @@ def device_profile(renderer, out_dir, tag="frame_trace"):
 
 
 def reset_launches():
-    from royaltracer_dx_tpu_torch.ops import stream_trace as st
-
-    for k in st.LAUNCHES:
-        st.LAUNCHES[k] = 0
+    reset_all_launches()
 
 
-def read_launches(label):
-    """The launch counts of the path just driven; fails unless every
-    kernel was launched in it."""
-    from royaltracer_dx_tpu_torch.ops import stream_trace as st
-
-    got = dict(st.LAUNCHES)
-    if not all(v > 0 for v in got.values()):
-        fail(f"{label}: a stream kernel was not launched ({got})")
-    return got
+def read_launches(label, want=tuple(KERNELS), zero=()):
+    """The stream and brute-force kernels' launch counts of the path just
+    driven; fails unless each kernel of ``want`` was launched in it and
+    none of ``zero`` was."""
+    got = all_launches()
+    missing = [k for k in want if not got[k] > 0]
+    extra = {k: got[k] for k in zero if got[k]}
+    counts = {k: got[k] for k in (*KERNELS, *BRUTE_KERNELS)}
+    if missing or extra:
+        fail(f"{label}: launches {counts}: {missing} not launched, {extra} "
+             "launched")
+    return counts
 
 
 def kernel_vs_plain(label, name, call, out, rates, mismatches):
@@ -799,6 +840,103 @@ def cli_scene(label, argv, frames):
     return res, launches, peak, secs
 
 
+def presort_check(label, renderer):
+    """One more frame keeping every presorted batch of the stream entry
+    points (a windowed scene sends every stream batch through
+    coherence_order: counted); on each: coherence_order's time, the
+    stream kernel's time on the presorted and on the unsorted rays, and
+    the two traces equal bit for bit after the inverse (t, tri, u, v;
+    occlusion): the lanes that differ are counted, and any fails."""
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+
+    real = {k: getattr(st, k) for k in ("_presorted", "closest_hit_stream",
+                                        "any_hit_stream")}
+    pending, kept = [], []
+    counts = dict(presorted=0, traces=0)
+
+    def presorted(o, d, t_min, t_max, accel):
+        counts["presorted"] += 1
+        pending.append((o, d, *st._bounds(t_min, t_max, o[0]), accel))
+        return real["_presorted"](o, d, t_min, t_max, accel)
+
+    def traced(kind):
+        def call(*args, **kw):
+            counts["traces"] += 1
+            if pending:
+                kept.append((kind, pending.pop()))
+            return real[f"{kind}_hit_stream"](*args, **kw)
+        return call
+
+    st._presorted = presorted
+    st.closest_hit_stream = traced("closest")
+    st.any_hit_stream = traced("any")
+    try:
+        ms, _ = cuda_ms(renderer.render)
+    finally:
+        for k, fn in real.items():
+            setattr(st, k, fn)
+    if not counts["traces"] or counts["presorted"] != counts["traces"]:
+        fail(f"{label}: {counts['presorted']} of {counts['traces']} stream "
+             "batches went through coherence_order")
+    wb = renderer.cfg.stream_wb
+    rows = []
+    for kind, (o, d, lo, hi, acc) in kept:
+        n = o[0].shape[0]
+        order_ms, _ = cuda_ms(lambda: st.coherence_order(o, d, acc), reps=3)
+        so, sd, slo, shi, _ = st._presorted(o, d, lo, hi, acc)
+        kern = st.stream_closest if kind == "closest" else st.stream_any
+        times = {}
+        for key, rays in (("unsorted", (o, d, lo, hi)),
+                          ("presorted", (so, sd, slo, shi))):
+            call = st.prepare_stream(rays[0], rays[1], acc, rays[2], rays[3],
+                                     wb)
+            cuda_ms(lambda: kern(*call, acc.blk_tris, acc.blk_boxes))
+            times[key], _ = cuda_ms(
+                lambda: kern(*call, acc.blk_tris, acc.blk_boxes), reps=3)
+            del call
+        del so, sd, slo, shi
+        if kind == "closest":
+            a = st.closest_hit_stream_xla(o, d, acc, lo, hi, wb, presort=True)
+            b = st.closest_hit_stream_xla(o, d, acc, lo, hi, wb,
+                                          presort=False)
+            differ = torch.zeros(n, dtype=torch.bool, device=o[0].device)
+            for f in ("t", "tri", "u", "v"):
+                differ |= bits(getattr(a, f)) != bits(getattr(b, f))
+        else:
+            differ = (
+                st.any_hit_stream_xla(o, d, acc, lo, hi, wb, presort=True)
+                != st.any_hit_stream_xla(o, d, acc, lo, hi, wb,
+                                         presort=False))
+        lanes_differ = int(differ.sum())
+        live = int((lo < hi).sum())
+        print(f"  {label} presort, {kind}-hit batch of {n} lanes ({live} "
+              f"live): coherence_order {order_ms:.3f} ms; stream_{kind} "
+              f"{times['presorted']:.3f} ms on the presorted rays, "
+              f"{times['unsorted']:.3f} ms unsorted; lanes that differ "
+              f"after the inverse: {lanes_differ}", flush=True)
+        if lanes_differ:
+            fail(f"{label}: a presorted {kind}-hit trace differs from the "
+                 f"unsorted one on {lanes_differ} lanes")
+        rows.append(dict(kind=kind, lanes=n, live_lanes=live,
+                         coherence_order_ms=order_ms,
+                         kernel_presorted_ms=times["presorted"],
+                         kernel_unsorted_ms=times["unsorted"],
+                         lanes_differ=lanes_differ))
+    del kept
+    sums = {k: sum(r[k] for r in rows) for k in (
+        "coherence_order_ms", "kernel_presorted_ms", "kernel_unsorted_ms")}
+    big = max(rows, key=lambda r: r["lanes"])
+    print(f"  {label} presort frame: {ms:.3f} ms, {counts['presorted']} of "
+          f"{counts['traces']} stream batches presorted; over the frame's "
+          f"batches coherence_order {sums['coherence_order_ms']:.3f} ms + "
+          f"the kernels {sums['kernel_presorted_ms']:.3f} ms presorted "
+          f"against {sums['kernel_unsorted_ms']:.3f} ms unsorted; the "
+          f"largest batch ({big['kind']}, {big['lanes']} lanes) "
+          f"{big['kernel_presorted_ms']:.3f} against "
+          f"{big['kernel_unsorted_ms']:.3f} ms", flush=True)
+    return dict(frame_ms=ms, batches=rows, largest=big, **counts, **sums)
+
+
 def phase_scenes(out_dir, rates, mismatches, profile_dir=None):
     from royaltracer_dx_tpu_torch.camera import Camera, generate_rays
     from royaltracer_dx_tpu_torch.config import RenderConfig
@@ -863,13 +1001,14 @@ def phase_scenes(out_dir, rates, mismatches, profile_dir=None):
               flush=True)
         e, info, _ = scene_frame("sponza", res2["renderer"], rates,
                                  mismatches, profile_dir)
+        presort = presort_check("sponza", res2["renderer"])
         for k in KERNELS:
             entries[k]["sponza"] = dict(e[k], launches=launches[k])
         out["sponza"] = dict(
             triangles=sa.num_triangles, emissive=sa.lights.count,
             blocks=sa.stream.num_blocks, frame_ms=res["frame_ms"],
             resumed_frame_ms=res2["frame_ms"], peak_gib=peak,
-            launches=launches, compaction=comp_a, **info)
+            launches=launches, compaction=comp_a, presort=presort, **info)
         del r, res, res2, sa
         comp_log.clear()
         torch.cuda.empty_cache()
@@ -1004,7 +1143,8 @@ def phase_scenes(out_dir, rates, mismatches, profile_dir=None):
                 r.render()
         imgs.append(r.radiance())
         states.append(r.state_dict())
-    launches = read_launches("render_many")
+    # its scattered closest-hit batches (65,536 rays) take brute force
+    launches = read_launches("render_many", want=(*KERNELS, "brute_closest"))
     same_img = bool(np.array_equal(imgs[0], imgs[1]))
     diff_keys = [k for k in states[0]
                  if not np.array_equal(states[0][k], states[1][k])]
@@ -1059,7 +1199,9 @@ def accuracy_row(label, oracle, cand, bars, jax_row):
         imgs.append(r.radiance())
         frames.append(n)
         secs.append(t)
-    launches = read_launches(label)
+    # the Cornell box: brute force, as the JAX package decides
+    launches = read_launches(label, want=tuple(BRUTE_KERNELS),
+                             zero=tuple(KERNELS))
     a, b = imgs
     if not (np.isfinite(a).all() and np.isfinite(b).all()):
         fail(f"{label}: non-finite radiance")
@@ -1169,7 +1311,9 @@ def phase_oracles(out_dir, rates, mismatches, restir_sponza,
         rad, rays = megakernel.trace_paths(sa, mo, md, seeds, cfg)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    launches = read_launches("cornell_megakernel")
+    # 32 triangles: the JAX package traces them by brute force
+    launches = read_launches("cornell_megakernel", want=tuple(BRUTE_KERNELS),
+                             zero=tuple(KERNELS))
     if not bool(torch.isfinite(rad).all()) or float(rad.mean()) <= 0.0:
         fail("cornell_megakernel: radiance is not finite and positive")
     best = min(times[1:])
@@ -1205,7 +1349,10 @@ def phase_oracles(out_dir, rates, mismatches, restir_sponza,
         di[0].render()
         di[1].render_many(1)
     di[2].render_many(4)
-    launches = read_launches("render_many")
+    # menger's megakernel bounces (coherent) take the stream kernels, the
+    # Cornell DiOracle brute force
+    launches = read_launches("render_many",
+                             want=(*KERNELS, *BRUTE_KERNELS))
     di_same = bool(torch.equal(di[0]._acc, di[1]._acc))
     di_err = float(np.abs(di[2].radiance() - di[0].radiance()).max())
     print(f"  render_many: Renderer render_many(3) vs 3 render() on 256x256 "
@@ -1548,101 +1695,209 @@ def bvh_kernel_entry(name, rec, rates, mismatches):
                 work=work, **bound)
 
 
-def phase_sharding(rates, out_dir):
-    """(a) The 1080p menger frame on 1, 2 and 4 bands of one card."""
-    from royaltracer_dx_tpu_torch.config import RenderConfig
+# 1920x1080: a band's scattered closest-hit batches (1,036,800 rays on 2
+# bands, 518,400 on 4) are under 2^20 rays and take brute force, one
+# device's (2,073,600) the stream kernels.  The JAX package decides so too
+# (its shard_map traces a band's own batch), and the two routes differ on
+# rays through shared edges and box faces, which ReSTIR's reuse then
+# spreads over a few neighbours.  A banded 1080p image is held to one
+# device's within these limits on the pixels outside rtol 1e-5 / atol
+# 1e-6 and on the mean |difference| over the frame, about 4x the largest
+# readings: 68 pixels and 9.04e-7 after the move within the halo, 19 and
+# 6.40e-7 static, on 2 and 4 bands alike, where 14 of a band's 111,086
+# live scattered lanes took another triangle by brute force (H100 80GB
+# HBM3, 700.00 W).
+MIXED_ROUTE_LIMITS = dict(pixels_beyond_tol=300, mean_abs=4e-6)
+
+
+def band_frames(cfg, dev, n, checkpoint_dir=None):
+    """The menger frame on ``n`` bands of one card (n = 1: one
+    RestirRenderer): 3 frames, then a camera move within the halo and one
+    beyond it.  With ``checkpoint_dir``, a checkpoint round trip after.
+    Returns (the printed row, the radiance of each move, the renderer's
+    scene arrays)."""
     from royaltracer_dx_tpu_torch.io.checkpoint import (
         load_renderer_state,
         save_renderer_state,
     )
-    from royaltracer_dx_tpu_torch.ops import stream_trace as st
     from royaltracer_dx_tpu_torch.parallel.shard import ShardedRestirRenderer
     from royaltracer_dx_tpu_torch.render.restir_renderer import RestirRenderer
     from royaltracer_dx_tpu_torch.scene.procedural import menger_scene
 
-    cfg = RenderConfig()
-    dev = torch.device("cuda", torch.cuda.current_device())
-    halo = min(cfg.spatial_radius, cfg.height // 4)
-    # camera moves (orbit pitch, radians): about 4 rows, within the 20-row
-    # halo, then about 80 rows, beyond it
+    # camera moves (orbit pitch, radians): 0.004 is 3-4 rows, within the
+    # 20-row halo; 0.08 is 50-80 rows, beyond it
     moves = (("static", None), ("move within the halo", 0.004),
              ("move beyond the halo", 0.08))
-    ref_imgs: dict = {}
-    out = {}
 
-    def make(n):
+    def make():
         scene, camera = menger_scene()
         if n == 1:
             return RestirRenderer(scene, camera, cfg)
         return ShardedRestirRenderer(scene, camera, cfg, devices=[dev] * n)
 
-    for n in (1, 2, 4):
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    r = make()
+    frame_ms, per_frame = [], []
+    for _ in range(3):
+        prev = all_launches()
+        t0 = time.perf_counter()
+        r.render()
         torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        reset_launches()
-        r = make(n)
-        frame_ms, per_frame = [], []
-        for _ in range(3):
-            prev = dict(st.LAUNCHES)
-            t0 = time.perf_counter()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        per_frame.append({k: v - prev[k] for k, v in all_launches().items()
+                          if v - prev[k]})
+    imgs = {}
+    for label, pitch in moves:
+        if pitch is not None:
+            r.update(camera=r.camera.orbited(0.0, pitch))
             r.render()
-            torch.cuda.synchronize()
-            frame_ms.append((time.perf_counter() - t0) * 1e3)
-            per_frame.append({k: st.LAUNCHES[k] - prev[k] for k in prev})
-        launches = read_launches(f"menger on {n} band(s)")
-        diffs = {}
-        for label, pitch in moves:
-            if pitch is not None:
-                r.update(camera=r.camera.orbited(0.0, pitch))
-                r.render()
-            img = r.radiance()
-            if not (np.isfinite(img).all() and img.mean() > 0.0):
-                fail(f"menger on {n} bands: radiance not finite and positive")
-            if n == 1:
-                ref_imgs[label] = img
-                continue
-            ref = ref_imgs[label]
-            d = np.abs(img - ref)
-            ok = bool(np.all(d <= 1e-6 + 1e-5 * np.abs(ref)))
-            diffs[label] = dict(max_abs=float(d.max()),
-                                pixels_differ=int((d > 0).any(-1).sum()),
-                                within_tol=ok)
-            if label != "move beyond the halo" and not ok:
-                fail(f"menger on {n} bands ({label}): the image is not "
-                     f"within rtol=1e-5, atol=1e-6 of one device's "
-                     f"({diffs[label]})")
-        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
-        row = dict(frame_ms=frame_ms, launches_per_frame=per_frame,
-                   launches=launches, peak_gib=peak, vs_single=diffs)
-        print(f"  menger 1920x1080 on {n} band(s) of one card: frames "
-              f"{[round(x, 3) for x in frame_ms]} ms, launches per frame "
-              f"{per_frame[-1]}, peak memory {peak:.2f} GiB; against one "
-              f"device: {diffs or 'the reference'}", flush=True)
-        if n == 2:
-            ck = os.path.join(out_dir, "sharded_ckpt.npz")
-            t0 = time.perf_counter()
-            save_renderer_state(ck, r)
-            b = make(2)
-            b.camera = r.camera          # the state holds no camera
-            load_renderer_state(ck, b)
-            secs = time.perf_counter() - t0
-            r.render()
-            b.render()
-            same = bool(np.array_equal(r.radiance(), b.radiance()))
-            print(f"  2 bands: checkpoint saved and loaded in {secs:.1f} s "
-                  f"({os.path.getsize(ck) / 2**20:.1f} MiB); the next frame "
-                  f"bit-equal after the load: {same}", flush=True)
-            if not same or b.frame != r.frame:
-                fail("sharded checkpoint round trip changed the frame")
-            row["checkpoint"] = dict(seconds=secs, bit_equal=same)
-            os.remove(ck)
-            del b
-        out[f"{n}_bands"] = row
-        del r
+        imgs[label] = r.radiance()
+        if not (np.isfinite(imgs[label]).all() and imgs[label].mean() > 0.0):
+            fail(f"menger on {n} bands: radiance not finite and positive")
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    row = dict(frame_ms=frame_ms, launches_per_frame=per_frame,
+               peak_gib=peak)
+    if checkpoint_dir is not None:
+        ck = os.path.join(checkpoint_dir, "sharded_ckpt.npz")
+        t0 = time.perf_counter()
+        save_renderer_state(ck, r)
+        b = make()
+        b.camera = r.camera          # the state holds no camera
+        load_renderer_state(ck, b)
+        secs = time.perf_counter() - t0
+        r.render()
+        b.render()
+        same = bool(np.array_equal(r.radiance(), b.radiance()))
+        print(f"  {n} bands: checkpoint saved and loaded in {secs:.1f} s "
+              f"({os.path.getsize(ck) / 2**20:.1f} MiB); the next frame "
+              f"bit-equal after the load: {same}", flush=True)
+        if not same or b.frame != r.frame:
+            fail("sharded checkpoint round trip changed the frame")
+        row["checkpoint"] = dict(seconds=secs, bit_equal=same)
+        os.remove(ck)
+        del b
+    return row, imgs, r.scene_arrays
+
+
+def image_diff(img, ref) -> dict:
+    d = np.abs(img - ref)
+    beyond = d > 1e-6 + 1e-5 * np.abs(ref)
+    return dict(max_abs=float(d.max()), mean_abs=float(d.mean()),
+                pixels_differ=int((d > 0).any(-1).sum()),
+                pixels_beyond_tol=int(beyond.any(-1).sum()),
+                within_tol=not bool(beyond.any()))
+
+
+def route_disagreement(calls, sa, cfg) -> dict:
+    """The largest brute-force closest-hit batch of a banded run traced
+    again by the stream entry point on one device's accel (the route one
+    device takes): the lanes where the two answers differ."""
+    from royaltracer_dx_tpu_torch.ops import brute_trace as bt
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+    from royaltracer_dx_tpu_torch.ops.restir import _wants_presort
+
+    o, d, lo, hi, tris = calls.largest["brute_closest"][1]
+    t, tri, _, _ = bt.brute_closest(o, d, lo, hi, tris)
+    h = st.closest_hit_stream_xla(o, d, sa.stream, lo, hi, cfg.stream_wb,
+                                  presort=_wants_presort(sa))
+    hit_b, hit_s = t < 1e30, h.t < 1e30
+    both = hit_b & hit_s
+    other = both & (tri != h.tri)
+    return dict(lanes=o.shape[0], live_lanes=int((lo < hi).sum()),
+                hit_state=int((hit_b != hit_s).sum()),
+                other_triangle=int(other.sum()),
+                other_triangle_same_t=int((other
+                                           & (bits(t) == bits(h.t))).sum()),
+                other_t=int((both & (tri == h.tri)
+                             & (bits(t) != bits(h.t))).sum()))
+
+
+def phase_sharding(rates, out_dir):
+    """(a) The menger frame on 1, 2 and 4 bands of one card.  At 1280x720
+    every band count takes the same routes, and each banded image is held
+    within rtol 1e-5 / atol 1e-6 of one device's (static and after a move
+    within the halo), with a checkpoint round trip on 2 bands.  At
+    1920x1080 (phase 3's main path) the bands' scattered batches take
+    brute force and one device's the stream kernels (launch counts
+    checked): 4 bands are held to 2 bands' image by that tolerance, and
+    each to one device's within MIXED_ROUTE_LIMITS, beside the lanes
+    where the routes differ on a band's batch."""
+    from royaltracer_dx_tpu_torch.config import RenderConfig
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gated = ("static", "move within the halo")
+    out = {}
+    for cfg in (RenderConfig(width=1280, height=720), RenderConfig()):
+        size = f"{cfg.width}x{cfg.height}"
+        full = cfg.height == 1080
+        imgs, rows = {}, {}
+        for n in (1, 2, 4):
+            reset_all_launches()
+            with BruteCalls() as calls:
+                row, imgs[n], sa = band_frames(
+                    cfg, dev, n, out_dir if (n == 2 and not full) else None)
+            if full and n == 1:
+                one_sa = sa
+            del sa
+            # the band's own batch size decides brute force for the
+            # scattered closest-hit batches: all of 720p's, and 1080p's
+            # only on bands
+            brute = not full or n > 1
+            want = ("stream_closest", "stream_any") + (
+                ("brute_closest",) if brute else ())
+            zero = ("brute_any",) + (() if brute else ("brute_closest",))
+            row["launches"] = read_launches(f"menger {size} on {n} band(s)",
+                                            want=want, zero=zero)
+            if full and n == 2:
+                row["route_disagreement"] = route_disagreement(
+                    calls, one_sa, cfg)
+            del calls
+            vs = {}
+            for label, img in imgs[n].items():
+                if n == 1:
+                    continue
+                vs[label] = image_diff(img, imgs[1][label])
+                if label not in gated:
+                    continue
+                if not full and not vs[label]["within_tol"]:
+                    fail(f"menger {size} on {n} bands ({label}): the image "
+                         f"is not within rtol=1e-5, atol=1e-6 of one "
+                         f"device's ({vs[label]})")
+                if full and any(vs[label][k] > lim for k, lim in
+                                MIXED_ROUTE_LIMITS.items()):
+                    fail(f"menger {size} on {n} bands ({label}): against "
+                         f"one device {vs[label]}, beyond "
+                         f"{MIXED_ROUTE_LIMITS}")
+            row["vs_single"] = vs
+            if full and n == 4:
+                row["vs_2_bands"] = {label: image_diff(img, imgs[2][label])
+                                     for label, img in imgs[4].items()}
+                for label in gated:
+                    if not row["vs_2_bands"][label]["within_tol"]:
+                        fail(f"menger {size} on 4 bands ({label}): not "
+                             "within rtol=1e-5, atol=1e-6 of 2 bands' "
+                             f"image ({row['vs_2_bands'][label]})")
+            print(f"  menger {size} on {n} band(s) of one card: frames "
+                  f"{[round(x, 3) for x in row['frame_ms']]} ms, launches "
+                  f"per frame {row['launches_per_frame'][-1]}, peak memory "
+                  f"{row['peak_gib']:.2f} GiB; against one device: "
+                  f"{vs or 'the reference'}"
+                  + (f"; against 2 bands: {row['vs_2_bands']}"
+                     if "vs_2_bands" in row else "")
+                  + (f"; the band's largest scattered batch by brute force "
+                     f"against the stream kernels: "
+                     f"{row['route_disagreement']}"
+                     if "route_disagreement" in row else ""), flush=True)
+            rows[f"{n}_bands"] = row
+        if full:
+            del one_sa
+        out[size] = rows
     print(f"  (one card cannot show scaling: the bands run one after another;"
-          f" halo {halo} rows)", flush=True)
+          f" halo {min(cfg.spatial_radius, cfg.height // 4)} rows)",
+          flush=True)
     return out
 
 
@@ -1846,12 +2101,13 @@ def entry_error(a, b) -> float:
 
 
 def trace_modules():
+    from royaltracer_dx_tpu_torch.ops import brute_trace as bt
     from royaltracer_dx_tpu_torch.ops import cluster_traverse as ct
     from royaltracer_dx_tpu_torch.ops import mxu_trace as mx
     from royaltracer_dx_tpu_torch.ops import stream_trace as st
     from royaltracer_dx_tpu_torch.ops import traverse as tv
 
-    return st, tv, ct, mx
+    return st, tv, ct, mx, bt
 
 
 def all_launches() -> dict:
@@ -2746,6 +3002,292 @@ def phase_mxu(rates, mismatches):
     return out, entries
 
 
+# ------------------------------ phase 9 ----------------------------------
+
+BRUTE_SOURCE = "royaltracer_dx_tpu_torch/csrc/brute_trace.cu"
+# the JAX routines the brute-force kernels replace: XLA, not Pallas
+BRUTE_KERNELS = {
+    "brute_closest": ("royaltracer_dx_tpu/ops/intersect.py:143",
+                      "closest_hit_brute (_mt_chunk_planar over chunks)"),
+    "brute_any": ("royaltracer_dx_tpu/ops/intersect.py:205",
+                  "any_hit_brute"),
+}
+
+
+class BruteCalls:
+    """While a path runs on the card, keeps the call of each brute-force
+    wrapper with the most live rays (its inputs) and refuses the plain
+    versions."""
+
+    def __init__(self):
+        from royaltracer_dx_tpu_torch.ops import brute_trace as bt
+
+        self.bt, self.largest = bt, {}
+
+    def __enter__(self):
+        bt = self.bt
+        self.real = {k: getattr(bt, k) for k in BRUTE_KERNELS}
+
+        def keep(name):
+            def call(*args, **kw):
+                live = int((args[2] < args[3]).sum())
+                if live > self.largest.get(name, (0,))[0]:
+                    self.largest[name] = (live, args[:5])
+                return self.real[name](*args, **kw)
+            return call
+
+        for k in BRUTE_KERNELS:
+            setattr(bt, k, keep(k))
+        self.no_plain = NoPlain(bt, "closest_hit_brute", "any_hit_brute")
+        self.no_plain.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.no_plain.__exit__(*exc)
+        for k, fn in self.real.items():
+            setattr(self.bt, k, fn)
+
+
+def brute_check(label, kind, args, mismatches):
+    """Both builds of a kernel against the plain version, bit for bit:
+    (t, tri, u, v), or (occluded, tests in the counted build's order,
+    occluded by the uncounted build).  Returns (the plain version's ms,
+    the kernel's answer)."""
+    from royaltracer_dx_tpu_torch.ops import brute_trace as bt
+    from royaltracer_dx_tpu_torch.ops import intersect as it
+
+    name = f"brute_{kind}"
+    o, d, lo, hi, tris = args
+    if kind == "closest":
+        k_out = bt.brute_closest(*args)
+        torch.cuda.synchronize()
+        plain_ms, h = cuda_ms(lambda: it.closest_hit_brute(o, d, tris, lo,
+                                                           hi))
+        p_out = (h.t, h.tri, h.u, h.v)
+    else:
+        occ, tests = bt.brute_any(*args, stats=True)
+        k_out = (occ, tests, bt.brute_any(*args)[0])
+        torch.cuda.synchronize()
+        plain_ms, p_occ = cuda_ms(lambda: it.any_hit_brute(o, d, tris, lo,
+                                                           hi))
+        p_out = (p_occ, bt.first_hit_tests(o, d, lo, hi, tris), p_occ)
+    mxu_mismatch(name, k_out, p_out, label, mismatches)
+    return plain_ms, k_out
+
+
+def brute_timed(label, kind, args, rates, tests=None):
+    """The kernel on a batch (CUDA events, and device time alone from
+    torch.profiler) beside brute_work's bound and the stream, LBVH and MXU
+    kernels on the same rays.  ``tests``: an any-hit batch's tests per ray
+    (the counted build's), which mt_stages follows."""
+    from royaltracer_dx_tpu_torch.ops import brute_trace as bt
+    from royaltracer_dx_tpu_torch.ops import mxu_trace as mx
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+    from royaltracer_dx_tpu_torch.ops import traverse as tv
+    from royaltracer_dx_tpu_torch.ops.bvh import build_lbvh
+
+    o, d, lo, hi, tris = args
+    n, t_count = o.shape[0], tris.shape[0]
+    closest = kind == "closest"
+    kern = bt.brute_closest if closest else bt.brute_any
+    cuda_ms(lambda: kern(*args), reps=2)
+    ms, _ = cuda_ms(lambda: kern(*args), reps=5)
+    live = int((lo < hi).sum())
+    stages = bt.mt_stages(o, d, lo, hi, tris, tests)
+    work = bt.brute_work(stages, t_count, n, closest)
+    bound = st.bound_ms(work, *rates)
+    every_stage = st.bound_ms(dict(work, fp32_ops=work["all_stages_fp32_ops"]),
+                              *rates)["bound_ms"]
+    device = {"brute": kernel_device_ms(lambda: kern(*args),
+                                        f"brute_{kind}_kernel")}
+    others = {}
+    if t_count:
+        acc = st.build_stream_accel(tris)
+        call = st.prepare_stream(o, d, acc, lo, hi, 16)
+        s_kern = st.stream_closest if closest else st.stream_any
+        cuda_ms(lambda: s_kern(*call, acc.blk_tris, acc.blk_boxes), reps=2)
+        others["stream"], _ = cuda_ms(
+            lambda: s_kern(*call, acc.blk_tris, acc.blk_boxes), reps=5)
+        device["stream"] = kernel_device_ms(
+            lambda: s_kern(*call, acc.blk_tris, acc.blk_boxes),
+            "stream_kernel")
+        bvh = build_lbvh(tris)
+        packed = tv.pack_rays(o, d, lo, hi)
+        b_kern = tv.bvh_closest if closest else tv.bvh_any
+        cuda_ms(lambda: b_kern(packed, bvh), reps=2)
+        others["bvh"], _ = cuda_ms(lambda: b_kern(packed, bvh), reps=5)
+        device["bvh"] = kernel_device_ms(lambda: b_kern(packed, bvh),
+                                         f"bvh_{kind}_kernel")
+        mt = mx.build_mxu_tris(tris)
+        m_kern = mx.mxu_closest if closest else mx.mxu_any
+        cuda_ms(lambda: m_kern(o, d, lo, hi, mt), reps=2)
+        others["mxu"], _ = cuda_ms(lambda: m_kern(o, d, lo, hi, mt), reps=5)
+        device["mxu"] = kernel_device_ms(lambda: m_kern(o, d, lo, hi, mt),
+                                         "trace_kernel")
+        del acc, call, bvh, packed, mt
+    dev_txt = ", ".join(f"{k} {v:.4f}" if v is not None else
+                        f"{k} not measured" for k, v in device.items())
+    print(f"  {label} brute_{kind}: {n} lanes ({live} live) x {t_count} "
+          f"triangles: kernel {ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}, each pair to the stage it reaches; the "
+          f"kernel at {bound['bound_ms'] / ms:.1%}), no-FMA floor "
+          f"{bound['nofma_floor_ms']:.4f} ms, every pair to t "
+          f"{every_stage:.4f} ms; on the same rays "
+          + ", ".join(f"{k}_{kind} {v:.4f} ms" for k, v in others.items())
+          + f"; device time alone (torch.profiler) {dev_txt} ms; {work}",
+          flush=True)
+    return dict(ms=ms, lanes=n, live_lanes=live, triangles=t_count,
+                work=work, others_ms=others, device_ms=device,
+                every_stage_bound_ms=every_stage, **bound)
+
+
+def cornell_batches(dev):
+    """Cornell's 512x512 camera rays and a shadow batch from their hits
+    toward the light (every third lane masked), as brute-kernel inputs."""
+    from royaltracer_dx_tpu_torch import cli
+    from royaltracer_dx_tpu_torch.camera import generate_rays
+    from royaltracer_dx_tpu_torch.ops import brute_trace as bt
+    from royaltracer_dx_tpu_torch.ops.mxu_trace import prepare_rays
+
+    scene, camera = cli.build_scene("cornell")
+    sa = scene.flatten(scene.build_materials(device=dev), device=dev)
+    ca = {k: torch.as_tensor(x, device=dev)
+          for k, x in camera.matrices(1.0).items()}
+    o, d = generate_rays(ca, 512, 512)
+    cam = (*prepare_rays(o, d, 1e-4, 1e4), sa.tri_verts)
+    hit = bt.closest_hit_brute_traced(o, d, sa.tri_verts)
+    sh = shadow_batch(cam[0], cam[1], hit, sa.lights, sa.object_to_world)
+    return sa, cam, (*sh, sa.tri_verts)
+
+
+def phase_brute(out_dir, rates, mismatches):
+    """(a) brute_closest / brute_any against the plain versions, bit for
+    bit, on Cornell's and menger's batches and on tools/brute_cases.py's
+    inputs; (b) each timed beside its bound and the other trace kernels;
+    (c) the routes, by launch counts.  Returns (results, kernel
+    entries)."""
+    from royaltracer_dx_tpu_torch import cli
+    from royaltracer_dx_tpu_torch.config import RenderConfig
+    from royaltracer_dx_tpu_torch.ops import brute_trace as bt
+    from royaltracer_dx_tpu_torch.render.restir_renderer import RestirRenderer
+    from royaltracer_dx_tpu_torch.scene.procedural import menger_scene
+    from royaltracer_dx_tpu_torch.tools.brute_cases import (
+        BRUTE_CASES,
+        brute_case,
+    )
+
+    dev = torch.device("cuda")
+    out = {}
+    for name, res in bt.BUILD_INFO["resources"].items():
+        print(f"  {name}: {res['ctas_per_sm']} CTAs of {res['threads']} "
+              f"threads resident per SM, {res['registers']} registers per "
+              f"thread, {res['local_bytes']} B spilled, "
+              f"{res['shared_bytes']} B of shared memory per CTA",
+              flush=True)
+
+    # ---- (c) the routes: the CLI's default Cornell run, a 512x512 menger
+    # ReSTIR frame
+    reset_all_launches()
+    with BruteCalls() as cornell_calls:
+        t0 = time.perf_counter()
+        res = cli.main(["--scene", "cornell", "--frames", "3", "--out",
+                        os.path.join(out_dir, "cornell.png")])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    got = all_launches()
+    cornell_launches = {k: got[k] for k in BRUTE_KERNELS}
+    other = {k: v for k, v in got.items() if k not in BRUTE_KERNELS and v}
+    img = res["renderer"].radiance()
+    print(f"  cornell through cli.main (defaults: 512x512, traversal auto, 3"
+          f" frames): {secs:.1f} s, frames "
+          f"{[round(x, 3) for x in res['frame_ms']]} ms; launches "
+          f"{cornell_launches}, others {other}; radiance mean "
+          f"{img.mean():.6f}", flush=True)
+    if not all(cornell_launches.values()) or other:
+        fail(f"cornell cli: launches {cornell_launches}, others {other}: the "
+             "JAX package traces a 32-triangle scene by brute force")
+    if not (np.isfinite(img).all() and img.mean() > 0.0):
+        fail("cornell cli: radiance is not finite and positive")
+    out["cornell_cli"] = dict(seconds=secs, frame_ms=res["frame_ms"],
+                              launches=cornell_launches,
+                              radiance_mean=float(img.mean()))
+    del res
+
+    scene, camera = menger_scene()
+    r = RestirRenderer(scene, camera, RenderConfig(width=512, height=512))
+    r.render()
+    torch.cuda.synchronize()
+    reset_all_launches()
+    with BruteCalls() as menger_calls:
+        ms, _ = cuda_ms(r.render)
+    got = all_launches()
+    menger_launches = {k: got[k] for k in (*BRUTE_KERNELS, *KERNELS)}
+    other = {k: v for k, v in got.items() if k not in menger_launches and v}
+    print(f"  menger 512x512 ReSTIR frame: {ms:.3f} ms; launches "
+          f"{menger_launches} (the scattered closest-hit batches below 2^20 "
+          f"rays by brute force, the rest through the stream kernels), "
+          f"others {other}", flush=True)
+    if (not (got["brute_closest"] and got["stream_closest"]
+             and got["stream_any"]) or got["brute_any"] or other):
+        fail(f"menger 512x512 frame: launches {menger_launches}, others "
+             f"{other}")
+    out["menger_512"] = dict(frame_ms=ms, launches=menger_launches)
+    sa_m = r.scene_arrays
+    del r
+
+    # ---- (a) kernels against the plain versions, (b) timed
+    t0 = time.perf_counter()
+    sa_c, cam, shadow = cornell_batches(dev)
+    scatter = menger_calls.largest["brute_closest"][1]
+    hit = bt.closest_hit_brute_traced(*scatter[:2], scatter[4], *scatter[2:4])
+    m_shadow = (*shadow_batch(scatter[0], scatter[1], hit, sa_m.lights,
+                              sa_m.object_to_world), scatter[4])
+    batches = {
+        ("cornell", "closest"): ("Cornell 512x512 camera batch", cam),
+        ("cornell", "any"): ("Cornell shadow batch", shadow),
+        ("menger", "closest"): ("menger's busiest scattered 512x512 batch",
+                                scatter),
+        ("menger", "any"): ("menger shadow batch from it", m_shadow),
+        ("cornell_cli", "any"): (
+            "Cornell CLI's busiest any-hit batch",
+            cornell_calls.largest["brute_any"][1]),
+    }
+    res_b = {}
+    for (scene_name, kind), (label, args) in batches.items():
+        plain_ms, k_out = brute_check(label, kind, args, mismatches)
+        tests = k_out[1] if kind == "any" else None
+        row = brute_timed(label, kind, args, rates, tests)
+        row.update(plain_ms=plain_ms)
+        print(f"    plain version {plain_ms:.3f} ms, bit-equal to the kernel",
+              flush=True)
+        res_b[f"{scene_name}_{kind}"] = row
+    for case in BRUTE_CASES:
+        args = brute_case(case, dev)
+        brute_check(f"case {case}", "closest", (*args[1:], args[0]),
+                    mismatches)
+        brute_check(f"case {case}", "any", (*args[1:], args[0]), mismatches)
+    print(f"  cases {', '.join(BRUTE_CASES)}: both kernels bit-equal to the "
+          f"plain versions ({time.perf_counter() - t0:.1f} s for (a) and (b))",
+          flush=True)
+    out["batches"] = res_b
+    entries = {}
+    for name, (replaces, fn) in BRUTE_KERNELS.items():
+        kind = name.split("_")[1]
+        big = res_b["menger_closest" if kind == "closest"
+                    else "cornell_cli_any"]
+        entries[name] = dict(
+            name=name, route="cuda", source=BRUTE_SOURCE, replaces=replaces,
+            replaces_fn=fn,
+            launches=cornell_launches[name] + menger_launches[name],
+            launches_by_path=dict(cornell_cli=cornell_launches[name],
+                                  menger_512=menger_launches[name]),
+            ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
+            bound_by=big["bound_by"], nofma_floor_ms=big["nofma_floor_ms"],
+            library_ms=None, shape_lanes=big["lanes"],
+            resources=bt.BUILD_INFO["resources"][name])
+    return out, entries
+
+
 # -------------------------------- main -----------------------------------
 
 
@@ -2763,6 +3305,7 @@ def main() -> None:
     sys.path.insert(0, ROOT)
     import royaltracer_dx_tpu_torch  # noqa: F401  (sets the TF32 switches)
     from royaltracer_dx_tpu_torch.config import RenderConfig
+    from royaltracer_dx_tpu_torch.ops import brute_trace as bt
     from royaltracer_dx_tpu_torch.ops import cluster_traverse as ct
     from royaltracer_dx_tpu_torch.ops import mxu_trace as mx
     from royaltracer_dx_tpu_torch.ops import stream_trace as st
@@ -2792,14 +3335,15 @@ def main() -> None:
           f"memory {hbm / 1e12:.2f} TB/s; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     # one nvcc per source, started together
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:
         for fut in [pool.submit(st.build_kernels),
                     pool.submit(tv.build_kernels),
                     pool.submit(ct.build_kernels),
-                    pool.submit(mx.build_kernels)]:
+                    pool.submit(mx.build_kernels),
+                    pool.submit(bt.build_kernels)]:
             fut.result()
     for info in (st.BUILD_INFO, tv.BUILD_INFO, ct.BUILD_INFO,
-                 mx.BUILD_INFO):
+                 mx.BUILD_INFO, bt.BUILD_INFO):
         print(f"  built {os.path.relpath(info['path'], ROOT)} in "
               f"{info['seconds']:.1f} s ({' '.join(info['flags'])})",
               flush=True)
@@ -2945,7 +3489,15 @@ def main() -> None:
     mxu, mxu_entries = phase_mxu((peak_flops, hbm), mismatches)
     print(f"  mxu phase {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # ---- phases 9-10: the kernels line and the ok line
+    # ---- phase 9: the brute-force kernels and the routes
+    print("phase 9: brute force", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        brute, brute_entries = phase_brute(args.out or tmp,
+                                           (peak_flops, hbm), mismatches)
+    print(f"  brute phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- phases 10-11: the kernels line and the ok line
     for e in entries:
         e["scenes"] = dict(by_kernel[e["name"]], **by_kernel_o[e["name"]])
         e["max_abs_err"] = max(c["max_abs_err"] for c in mismatches[e["name"]])
@@ -2971,12 +3523,19 @@ def main() -> None:
                                lanes_checked=sum(c["lanes"] for c in checks),
                                lanes_differ=sum(c["bad"] for c in checks)))
         entries.append(e)
+    for name, e in brute_entries.items():
+        checks = mismatches[name]
+        e.update(max_abs_err=max(c["max_abs_err"] for c in checks),
+                 mismatch=dict(cases_checked=len(checks),
+                               lanes_checked=sum(c["lanes"] for c in checks),
+                               lanes_differ=sum(c["bad"] for c in checks)))
+        entries.append(e)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries, "frame_ms": timed,
                       "small_frames_agree": agree, "profile": profile,
                       "scenes": scenes, "oracles": oracles,
                       "sharding": sharding, "lbvh": lbvh,
-                      "cluster": cluster, "mxu": mxu,
+                      "cluster": cluster, "mxu": mxu, "brute": brute,
                       "device": name_power}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

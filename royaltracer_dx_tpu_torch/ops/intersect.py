@@ -1,10 +1,11 @@
 """Ray/triangle intersection: batched Möller–Trumbore (port of
 royaltracer_dx_tpu/ops/intersect.py).
 
-``closest_hit_brute`` / ``any_hit_brute`` are plain tensor code: the CPU
-dispatch uses them for small scenes (as the JAX package does) and they are
-the oracle the stream kernels are held against.  On the card every trace
-goes through the stream kernels instead (ops/restir.py).
+``closest_hit_brute`` / ``any_hit_brute`` are plain tensor code on every
+device: the plain versions of the brute-force kernels (ops/brute_trace.py,
+which the dispatch calls wherever the JAX package picks brute force, and
+which run them for CPU tensors) and the oracle that every trace kernel is
+held against.
 """
 
 from __future__ import annotations
@@ -34,10 +35,10 @@ class Hit:
         return self.t < INF
 
 
-def _mt_chunk_planar(o, d, v0, e1, e2, t_min, t_max):
-    """MT for all rays x one chunk of triangles (intersect.py:62-98).
-    o/d: 3-tuples of [N, 1]; v0/e1/e2: 3-tuples of [C].  Returns
-    (t [N, C] with misses at INF, u, v)."""
+def _mt_terms(o, d, v0, e1, e2):
+    """The MT terms of all rays x one chunk of triangles in the plain
+    association order (intersect.py:62-98): (big = |det| > eps, u, v, t),
+    each [N, C].  o/d: 3-tuples of [N, 1]; v0/e1/e2: 3-tuples of [C]."""
     ox, oy, oz = o
     dx, dy, dz = d
     v0x, v0y, v0z = v0
@@ -58,6 +59,14 @@ def _mt_chunk_planar(o, d, v0, e1, e2, t_min, t_max):
     qz = tx * e1y - ty * e1x
     v = (dx * qx + dy * qy + dz * qz) * inv_det
     t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    return big, u, v, t
+
+
+def _mt_chunk_planar(o, d, v0, e1, e2, t_min, t_max):
+    """MT for all rays x one chunk of triangles (intersect.py:62-98).
+    o/d: 3-tuples of [N, 1]; v0/e1/e2: 3-tuples of [C].  Returns
+    (t [N, C] with misses at INF, u, v)."""
+    big, u, v, t = _mt_terms(o, d, v0, e1, e2)
     ok = (big & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
           & (t > t_min) & (t < t_max))
     return torch.where(ok, t, torch.full_like(t, INF)), u, v

@@ -4,20 +4,24 @@ Tracing with v6 hit semantics, reconnection p-hat, NEE / BSDF candidates,
 pairwise MIS, spatial rejection tests and reprojection: the planar forms
 (:583-1011) that the renderer and restir_gi call, and the AoS forms
 (:281-580, :808, :1011) of the reference-shaped API, whose traces go
-through the same dispatch.  ``wants_chunking``, ``_wants_presort`` and
-``_chunked_rays`` (:109-168) are not ported: they cap the JAX package's
-trace memory, and every port path traces a batch in one piece (below).
+through the same dispatch.  ``wants_chunking`` and ``_chunked_rays``
+(:109-168) are not ported: they cap the JAX package's trace memory, and
+every port path traces a batch in one piece (below).
 
-Trace dispatch: under traversal "bvh" every closest-hit and occlusion
-batch goes through the LBVH (ops/traverse.py), under "cluster" through
-the clusters in tiles of ``cfg.cluster_tile`` rays
-(ops/cluster_traverse.py), in both cases the kernels on the card and
-their plain versions on the CPU, as in the JAX package (:198-207,
-:235-243).  Otherwise on the card every batch launches the stream kernels
-(ops/stream_trace.py), whatever ``cfg.traversal`` says ("auto" / "brute" /
-"stream"); on the CPU the port follows the JAX package's decisions
-(``resolve_closest_mode`` / ``resolve_any_mode``, :88-107) between brute
-force and the stream kernels' plain version.
+Trace dispatch: the JAX package's decisions on every device.  Under
+traversal "bvh" every closest-hit and occlusion batch goes through the
+LBVH (ops/traverse.py), under "cluster" through the clusters in tiles of
+``cfg.cluster_tile`` rays (ops/cluster_traverse.py), as in the JAX package
+(:198-207, :235-243).  Otherwise ``resolve_closest_mode`` /
+``resolve_any_mode`` (:88-107) pick brute force (ops/brute_trace.py: the
+``brute_closest`` / ``brute_any`` kernels) or the stream traversal
+(``closest_hit_stream_xla`` / ``any_hit_stream_xla`` in
+ops/stream_trace.py, with the Morton presort on windowed scenes,
+``_wants_presort``, :77-85): "auto" takes brute force below
+``STREAM_AUTO_MIN_TRIS`` triangles, and scattered closest-hit batches of
+fewer than 2^20 rays on flat-path scenes go to brute force too.  Each
+route launches its kernels for CUDA tensors and runs their plain versions
+for CPU tensors.
 
 The JAX package splits trace batches above 4M rays into sequential chunks
 aligned to 128 rays (``_chunked_rays``, :143-168) to fit TPU HBM; on an
@@ -41,21 +45,23 @@ from royaltracer_dx_tpu_torch.config import (
     RenderConfig,
 )
 from royaltracer_dx_tpu_torch.ops import bsdf, light_sampling
+from royaltracer_dx_tpu_torch.ops.brute_trace import (
+    any_hit_brute_traced,
+    closest_hit_brute_traced,
+)
 from royaltracer_dx_tpu_torch.ops.cluster_traverse import (
     any_hit_clustered,
     closest_hit_clustered,
 )
 from royaltracer_dx_tpu_torch.ops.intersect import (
-    any_hit_brute,
     as_planes3,
-    closest_hit_brute,
     hit_attributes_p,
     interpolate_hit,
 )
 from royaltracer_dx_tpu_torch.ops.stream_trace import (
     S,
-    any_hit_stream,
-    closest_hit_stream,
+    any_hit_stream_xla,
+    closest_hit_stream_xla,
 )
 from royaltracer_dx_tpu_torch.ops.traverse import any_hit_bvh, closest_hit_bvh
 from royaltracer_dx_tpu_torch.scene.types import SceneArrays
@@ -71,7 +77,7 @@ _T_MAX = 1e4
 # the miss sentinel as the int32 the passes carry (uint32 4294967294 -> -2)
 MISS_ID_I32 = MISS_MATERIAL_ID - (1 << 32)
 # stream_trace.py:1444 — scenes of at most this many clusters take the JAX
-# package's single-level flat path (a dispatch input on the CPU only)
+# package's single-level flat path (a dispatch input)
 _FLAT_MAX_CLUSTERS = 128
 # restir.py:140 — the JAX package traces larger batches in chunks
 _TRACE_CHUNK_RAYS = 1 << 22
@@ -94,6 +100,12 @@ def _resolve_accel(scene: SceneArrays, cfg: RenderConfig) -> str:
 def _is_flat(scene: SceneArrays) -> bool:
     return (scene.stream is not None
             and scene.stream.num_blocks * S <= _FLAT_MAX_CLUSTERS)
+
+
+def _wants_presort(scene: SceneArrays) -> bool:
+    """The Morton ray presort of stream batches (:77-85): on windowed
+    scenes only (more than 128 clusters)."""
+    return not _is_flat(scene)
 
 
 def resolve_closest_mode(scene: SceneArrays, cfg: RenderConfig, n: int,
@@ -123,8 +135,9 @@ def wants_gi_compaction(scene: SceneArrays, cfg: RenderConfig) -> bool:
 
 def trace_mode(scene: SceneArrays, cfg: RenderConfig, n: int,
                coherent: bool = True, closest: bool = True) -> str:
-    """Which trace a batch takes: "bvh" (the LBVH kernels), "cluster" (the
-    cluster kernels), "stream" (the stream kernels) or "brute"."""
+    """Which trace a batch takes, the JAX package's decision on every
+    device: "bvh" (the LBVH kernels), "cluster" (the cluster kernels),
+    "stream" (the stream kernels) or "brute" (the brute-force kernels)."""
     if cfg.accel == "bvh":
         if scene.bvh is None:
             raise ValueError("traversal='bvh' on a scene without an LBVH "
@@ -136,14 +149,14 @@ def trace_mode(scene: SceneArrays, cfg: RenderConfig, n: int,
                              "clusters (Scene.flatten(build_clusters=True) "
                              "builds them)")
         return "cluster"
-    if scene.device.type == "cuda":
-        if scene.stream is None:
-            raise ValueError("CUDA scene without a stream accel "
-                             "(Scene.flatten builds it on the card)")
-        return "stream"
     if closest:
-        return resolve_closest_mode(scene, cfg, n, coherent)
-    return resolve_any_mode(scene, cfg, n)
+        mode = resolve_closest_mode(scene, cfg, n, coherent)
+    else:
+        mode = resolve_any_mode(scene, cfg, n)
+    if mode == "stream" and scene.stream is None:
+        raise ValueError("traversal='stream' on a scene without a stream "
+                         "accel (Scene.flatten(build_stream=True) builds it)")
+    return mode
 
 
 def cluster_tile_for(n: int, tile: int) -> int:
@@ -171,9 +184,10 @@ def _closest_dispatch(scene: SceneArrays, origins, dirs, cfg: RenderConfig,
         return closest_hit_clustered(op, dp, scene.clusters, t_min, t_max,
                                      tile=tile)
     if mode == "stream":
-        return closest_hit_stream(op, dp, scene.stream, t_min, t_max,
-                                  wb=cfg.stream_wb)
-    return closest_hit_brute(op, dp, scene.tri_verts, t_min, t_max)
+        return closest_hit_stream_xla(op, dp, scene.stream, t_min, t_max,
+                                      wb=cfg.stream_wb,
+                                      presort=_wants_presort(scene))
+    return closest_hit_brute_traced(op, dp, scene.tri_verts, t_min, t_max)
 
 
 def _any_dispatch(scene: SceneArrays, origins, dirs, cfg: RenderConfig,
@@ -189,9 +203,10 @@ def _any_dispatch(scene: SceneArrays, origins, dirs, cfg: RenderConfig,
         return any_hit_clustered(op, dp, scene.clusters, t_min, t_max,
                                  tile=tile)
     if mode == "stream":
-        return any_hit_stream(op, dp, scene.stream, t_min, t_max,
-                              wb=cfg.stream_wb)
-    return any_hit_brute(op, dp, scene.tri_verts, t_min, t_max)
+        return any_hit_stream_xla(op, dp, scene.stream, t_min, t_max,
+                                  wb=cfg.stream_wb,
+                                  presort=_wants_presort(scene))
+    return any_hit_brute_traced(op, dp, scene.tri_verts, t_min, t_max)
 
 
 def trace_closest(scene: SceneArrays, origins, dirs, cfg: RenderConfig,

@@ -837,7 +837,9 @@ def coherence_order(origins, dirs, accel: StreamAccel):
     codes of a point a quarter of the accel's extent along each ray, in a
     stable sort, so that a chunk's rays get a compact frustum whatever the
     caller's order.  AoS or planar rays; returns (order, inverse) int32.
-    No batch of the port is routed through it yet."""
+    ``closest_hit_stream_xla`` / ``any_hit_stream_xla`` route a batch
+    through it with ``presort=True``, as the dispatch does on windowed
+    scenes."""
     o, d = as_planes3(origins), as_planes3(dirs)
     lo = torch.amin(accel.top_lo, dim=0)
     hi = torch.amax(accel.top_hi, dim=0)
@@ -847,3 +849,61 @@ def coherence_order(origins, dirs, accel: StreamAccel):
     order = torch.sort(key, stable=True).indices
     inverse = torch.sort(order, stable=True).indices
     return order.to(torch.int32), inverse.to(torch.int32)
+
+
+# The JAX package's stream entry points (stream_trace.py:1720-1813).  The
+# JAX package answers them with its XLA sweeps (_trace_flat :1486,
+# _trace_stream_xla :1565 and their _sweep*, _fine_tables,
+# _per_ray_*_cull, _block_sort, _cluster_window* and
+# _interval_slab_batched): the TPU's formulation of the exact query that
+# stream_closest / stream_any answer, so those are not carried over and
+# the entry points trace through the stream kernels (their plain version
+# on the CPU).  What they keep is the presort.  JAX's ``reverse`` (trace
+# a segment from its far end, :1779-1791) is not carried over: its
+# dispatch passes reverse=False, and no path of the port sets it.
+
+
+def _bounds(t_min, t_max, like: torch.Tensor):
+    """Scalar or [N] bounds as float32 [N] on ``like``'s device."""
+    return tuple(torch.as_tensor(x, dtype=torch.float32,
+                                 device=like.device).expand(like.shape[0])
+                 for x in (t_min, t_max))
+
+
+def _presorted(o, d, t_min, t_max, accel: StreamAccel):
+    """The rays and bounds in ``coherence_order``, gathered through one
+    packed [N, 8] row (stream_trace.py:1729-1740), and the inverse."""
+    t_min, t_max = _bounds(t_min, t_max, o[0])
+    order, inverse = coherence_order(o, d, accel)
+    packed = torch.stack([*o, *d, t_min, t_max], dim=1)[order.long()]
+    return (tuple(packed[:, c] for c in range(3)),
+            tuple(packed[:, 3 + c] for c in range(3)), packed[:, 6],
+            packed[:, 7], inverse.long())
+
+
+def closest_hit_stream_xla(origins, dirs, accel: StreamAccel, t_min=1e-4,
+                           t_max=1e4, wb: int = 16,
+                           presort: bool = False) -> Hit:
+    """Closest hit of [N] rays through the stream kernels
+    (stream_trace.py:1720-1757).  ``presort``: trace the rays in
+    ``coherence_order`` and gather the answers back (triangle ids travel
+    as int64, not as JAX's floats)."""
+    o, d = as_planes3(origins), as_planes3(dirs)
+    if not presort:
+        return closest_hit_stream(o, d, accel, t_min, t_max, wb=wb)
+    so, sd, lo, hi, inverse = _presorted(o, d, t_min, t_max, accel)
+    hit = closest_hit_stream(so, sd, accel, lo, hi, wb=wb)
+    res = torch.stack([hit.t, hit.u, hit.v], dim=1)[inverse]
+    return Hit(t=res[:, 0], tri=hit.tri[inverse], u=res[:, 1], v=res[:, 2])
+
+
+def any_hit_stream_xla(origins, dirs, accel: StreamAccel, t_min, t_max,
+                       wb: int = 16, presort: bool = False) -> torch.Tensor:
+    """Occlusion of [N] segments through the stream kernels
+    (stream_trace.py:1760-1813, without ``reverse``).  ``presort`` as in
+    ``closest_hit_stream_xla``."""
+    o, d = as_planes3(origins), as_planes3(dirs)
+    if not presort:
+        return any_hit_stream(o, d, accel, t_min, t_max, wb=wb)
+    so, sd, lo, hi, inverse = _presorted(o, d, t_min, t_max, accel)
+    return any_hit_stream(so, sd, accel, lo, hi, wb=wb)[inverse]

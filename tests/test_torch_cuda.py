@@ -19,12 +19,14 @@ import numpy as np
 import pytest
 import torch
 
+from royaltracer_dx_tpu_torch.ops import brute_trace as tbt
 from royaltracer_dx_tpu_torch.ops import cluster_traverse as tct
 from royaltracer_dx_tpu_torch.ops import mxu_trace as tmx
 from royaltracer_dx_tpu_torch.ops import stream_trace as tst
 from royaltracer_dx_tpu_torch.ops import traverse as ttr
 from royaltracer_dx_tpu_torch.scene import procedural as tproc
 from royaltracer_dx_tpu_torch.scene.procedural import menger_sponge
+from royaltracer_dx_tpu_torch.tools.brute_cases import BRUTE_CASES, brute_case
 from royaltracer_dx_tpu_torch.tools.mxu_cases import MXU_CASES, mxu_case
 
 
@@ -833,3 +835,57 @@ def test_cuda_mxu_hits_beyond_inf(order):
         assert torch.equal(_bits(k), _bits(p))
     assert counts["exact_rays"] > 0
     assert bool(k_a[0].any())
+
+
+# --------------------------- brute-force kernels --------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BRUTE_CASES)
+def test_cuda_brute_kernels_match_plain(case):
+    """brute_closest and brute_any (its counted build's tests too) equal
+    the plain versions bit for bit on tools/brute_cases.py's inputs: a
+    triangle count that is no multiple of the tile, T = 1 and 0, NaN and
+    odd bounds, exact ties between duplicated triangles, the 70 x 70 grid
+    with rays aimed at vertices and edges, non-finite rays and hits
+    beyond INF; N = 10,001 rays."""
+    from royaltracer_dx_tpu_torch.ops import intersect as tit
+
+    dev = _card()
+    tris, o, d, lo, hi = brute_case(case, dev)
+    before = dict(tbt.LAUNCHES)
+    k_c = tbt.brute_closest(o, d, lo, hi, tris)
+    k_a = tbt.brute_any(o, d, lo, hi, tris, stats=True)
+    k_o, _ = tbt.brute_any(o, d, lo, hi, tris)
+    torch.cuda.synchronize()
+    assert tbt.LAUNCHES["brute_closest"] == before["brute_closest"] + 1
+    assert tbt.LAUNCHES["brute_any"] == before["brute_any"] + 2
+    h = tit.closest_hit_brute(o, d, tris, lo, hi)
+    p_a = (tit.any_hit_brute(o, d, tris, lo, hi),
+           tbt.first_hit_tests(o, d, lo, hi, tris))
+    for k, p in zip((*k_c, *k_a, k_o), (h.t, h.tri, h.u, h.v, *p_a, p_a[0])):
+        assert k.dtype == p.dtype
+        assert torch.equal(_bits(k), _bits(p))
+    if case not in ("no_tris", "beyond_inf"):
+        assert bool((k_c[0] < 1e30).any()) and bool(k_a[0].any())
+
+
+@pytest.mark.gpu
+def test_cuda_cornell_takes_brute_force(tmp_path):
+    """The CLI's default scene on the card (32 triangles, traversal
+    "auto") and its megakernel frame trace by brute force, as the JAX
+    package decides: brute launches, no stream launch."""
+    from royaltracer_dx_tpu_torch import cli
+
+    _card()
+    for renderer in ("restir", "megakernel"):
+        before = dict(tst.LAUNCHES)
+        b_before = dict(tbt.LAUNCHES)
+        res = cli.main(["--scene", "cornell", "--width", "64", "--height",
+                        "64", "--frames", "2", "--renderer", renderer,
+                        "--out", str(tmp_path / f"{renderer}.png")])
+        torch.cuda.synchronize()
+        assert tst.LAUNCHES == before, renderer
+        assert all(tbt.LAUNCHES[k] > b_before[k] for k in b_before), renderer
+        img = res["renderer"].radiance()
+        assert np.isfinite(img).all() and img.mean() > 0

@@ -34,7 +34,6 @@ from royaltracer_dx_tpu_torch import convert
 from royaltracer_dx_tpu_torch.camera import Camera
 from royaltracer_dx_tpu_torch.config import RenderConfig
 from royaltracer_dx_tpu_torch.ops import intersect as tit
-from royaltracer_dx_tpu_torch.ops import restir as trestir
 from royaltracer_dx_tpu_torch.ops import stream_trace as tst
 from royaltracer_dx_tpu_torch.render import megakernel as tmk
 from royaltracer_dx_tpu_torch.render.renderer import Renderer
@@ -286,14 +285,15 @@ def test_missed_lanes_leave_chunk_bounds(monkeypatch):
     t_min (the port's ``_build_worklists``), every lane equals brute
     force.  On the menger scene with traversal="stream"."""
     calls = []
-    real = trestir.any_hit_stream
+    real = tst.any_hit_stream
 
     def spy(o, d, accel, t_min, t_max, wb=64):
         out = real(o, d, accel, t_min, t_max, wb=wb)
         calls.append((o, d, accel, t_min, t_max, wb, out))
         return out
 
-    monkeypatch.setattr(trestir, "any_hit_stream", spy)
+    # the dispatch reaches it through stream_trace.any_hit_stream_xla
+    monkeypatch.setattr(tst, "any_hit_stream", spy)
     r = Renderer(*tproc.menger_scene(),
                  RenderConfig(**dict(CFG, max_bounces=2, traversal="stream")),
                  device="cpu")
