@@ -192,12 +192,16 @@ Phases (any failure exits non-zero and prints no result line):
               512x512 camera batch and a shadow batch from its hits
               (every third lane masked), the busiest (most live rays)
               of that frame's scattered 262,144-ray batches and a
-              shadow batch from it, the CLI run's busiest any-hit batch
-              and tools/brute_cases.py's inputs; (b) each kernel timed
-              on those batches (CUDA
-              events and torch.profiler device time) beside brute_work's
-              bound and no-FMA floor and the stream, LBVH and MXU
-              kernels on the same rays.
+              shadow batch from it, the CLI run's busiest any-hit batch,
+              phase 6's busiest scattered batch of a 2-band 1920x1080
+              menger frame (1,036,800 lanes: the heaviest brute batch)
+              and tools/brute_cases.py's inputs, with the plan (live
+              rays, groups, slices) each build's device chose, read back
+              and held against brute_trace.slice_plan; (b) each kernel
+              timed on those batches (CUDA events, and torch.profiler
+              device time of the whole call: memset, list and main
+              kernel) beside brute_work's bound and no-FMA floor and the
+              stream, LBVH and MXU kernels on the same rays.
  10. the {"kernels": [...]} line (eleven kernels), then
  11. the {"ok": true, ...} line.
 
@@ -1815,7 +1819,7 @@ def route_disagreement(calls, sa, cfg) -> dict:
                              & (bits(t) != bits(h.t))).sum()))
 
 
-def phase_sharding(rates, out_dir):
+def phase_sharding(rates, out_dir, keep):
     """(a) The menger frame on 1, 2 and 4 bands of one card.  At 1280x720
     every band count takes the same routes, and each banded image is held
     within rtol 1e-5 / atol 1e-6 of one device's (static and after a move
@@ -1824,7 +1828,9 @@ def phase_sharding(rates, out_dir):
     brute force and one device's the stream kernels (launch counts
     checked): 4 bands are held to 2 bands' image by that tolerance, and
     each to one device's within MIXED_ROUTE_LIMITS, beside the lanes
-    where the routes differ on a band's batch."""
+    where the routes differ on a band's batch.  ``keep["band_1080p"]``
+    gets the inputs of 2 bands' busiest 1080p scattered batch, the
+    heaviest brute-force batch of any phase (timed in phase 9)."""
     from royaltracer_dx_tpu_torch.config import RenderConfig
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -1854,6 +1860,7 @@ def phase_sharding(rates, out_dir):
             if full and n == 2:
                 row["route_disagreement"] = route_disagreement(
                     calls, one_sa, cfg)
+                keep["band_1080p"] = calls.largest["brute_closest"][1]
             del calls
             vs = {}
             for label, img in imgs[n].items():
@@ -3016,7 +3023,8 @@ BRUTE_KERNELS = {
 
 class BruteCalls:
     """While a path runs on the card, keeps the call of each brute-force
-    wrapper with the most live rays (its inputs) and refuses the plain
+    wrapper with the most live rays (its inputs, as [N, 3] rows and [N]
+    bounds: the dispatch passes planes and scalars) and refuses the plain
     versions."""
 
     def __init__(self):
@@ -3030,9 +3038,14 @@ class BruteCalls:
 
         def keep(name):
             def call(*args, **kw):
-                live = int((args[2] < args[3]).sum())
+                from royaltracer_dx_tpu_torch.ops.mxu_trace import (
+                    prepare_rays,
+                )
+
+                rows = (*prepare_rays(*args[:4]), args[4])
+                live = int((rows[2] < rows[3]).sum())
                 if live > self.largest.get(name, (0,))[0]:
-                    self.largest[name] = (live, args[:5])
+                    self.largest[name] = (live, rows)
                 return self.real[name](*args, **kw)
             return call
 
@@ -3075,6 +3088,75 @@ def brute_check(label, kind, args, mismatches):
     return plain_ms, k_out
 
 
+def brute_frame_ms(label, render) -> dict:
+    """One more frame of ``render`` with every brute wrapper call kept
+    (its inputs, as rows); then each call run alone and timed by
+    torch.profiler (every device operation it launches: memset, list,
+    main and relist kernels): per wrapper the calls and the sum of their
+    device ms, the frame's brute time without its host gaps."""
+    from royaltracer_dx_tpu_torch.ops import brute_trace as bt
+    from royaltracer_dx_tpu_torch.ops.mxu_trace import prepare_rays
+
+    real = {k: getattr(bt, k) for k in BRUTE_KERNELS}
+    calls = []
+
+    def wrap(name):
+        def call(*args, **kw):
+            calls.append((name, (*prepare_rays(*args[:4]), args[4])))
+            return real[name](*args, **kw)
+        return call
+
+    for k in BRUTE_KERNELS:
+        setattr(bt, k, wrap(k))
+    try:
+        render()
+        torch.cuda.synchronize()
+    finally:
+        for k, fn in real.items():
+            setattr(bt, k, fn)
+    out = {k: dict(calls=0, device_ms=0.0) for k in BRUTE_KERNELS}
+    for name, rows in calls:
+        ms = kernel_device_ms(lambda: real[name](*rows), "", reps=3)
+        out[name]["calls"] += 1
+        if ms is None or out[name]["device_ms"] is None:
+            out[name]["device_ms"] = None
+        else:
+            out[name]["device_ms"] += ms
+    del calls
+    print(f"  {label}: one more frame, its brute calls each run alone "
+          "(device time by torch.profiler, summed): " + ", ".join(
+              f"{k} {v['calls']} calls "
+              + (f"{v['device_ms']:.4f} ms" if v["device_ms"] is not None
+                 else "not measured") for k, v in out.items()),
+          flush=True)
+    return out
+
+
+def brute_plans(label, kind, args) -> dict:
+    """The plan the main kernel chose on a batch (each build; any hit's
+    every round), read back from a launch, held against
+    brute_trace.slice_plan."""
+    from royaltracer_dx_tpu_torch.ops import brute_trace as bt
+
+    builds = ("closest",) if kind == "closest" else ("any", "any_counted")
+    plans = {}
+    for b in builds:
+        plan = bt.launch_plan(b, *args)
+        for r in plan["rounds"]:
+            want = bt.slice_plan(r["live"], r["tri_hi"] - r["tri_lo"],
+                                 r["grid"])
+            if r["slices"] != want["slices"]:
+                fail(f"brute_{b} on {label}: plan {r}, expected {want}")
+        plans[b] = plan
+    print(f"    plan ({label}): " + "; ".join(
+        f"brute_{b}: " + ", ".join(
+            f"triangles [{r['tri_lo']}, {r['tri_hi']}): {r['live']} rays in "
+            f"{r['groups']} groups x {r['slices']} slices of "
+            f"{r['slice_len']} on {r['grid']} CTAs" for r in p["rounds"])
+        for b, p in plans.items()), flush=True)
+    return plans
+
+
 def brute_timed(label, kind, args, rates, tests=None):
     """The kernel on a batch (CUDA events, and device time alone from
     torch.profiler) beside brute_work's bound and the stream, LBVH and MXU
@@ -3094,12 +3176,13 @@ def brute_timed(label, kind, args, rates, tests=None):
     ms, _ = cuda_ms(lambda: kern(*args), reps=5)
     live = int((lo < hi).sum())
     stages = bt.mt_stages(o, d, lo, hi, tris, tests)
-    work = bt.brute_work(stages, t_count, n, closest)
+    work = bt.brute_work(stages, t_count, n, closest, live)
     bound = st.bound_ms(work, *rates)
     every_stage = st.bound_ms(dict(work, fp32_ops=work["all_stages_fp32_ops"]),
                               *rates)["bound_ms"]
-    device = {"brute": kernel_device_ms(lambda: kern(*args),
-                                        f"brute_{kind}_kernel")}
+    # every device operation of the call: the scratch's memset, the list
+    # and the main kernel
+    device = {"brute": kernel_device_ms(lambda: kern(*args), "")}
     others = {}
     if t_count:
         acc = st.build_stream_accel(tris)
@@ -3160,12 +3243,13 @@ def cornell_batches(dev):
     return sa, cam, (*sh, sa.tri_verts)
 
 
-def phase_brute(out_dir, rates, mismatches):
+def phase_brute(out_dir, rates, mismatches, band):
     """(a) brute_closest / brute_any against the plain versions, bit for
-    bit, on Cornell's and menger's batches and on tools/brute_cases.py's
-    inputs; (b) each timed beside its bound and the other trace kernels;
-    (c) the routes, by launch counts.  Returns (results, kernel
-    entries)."""
+    bit, on Cornell's and menger's batches, ``band`` (phase 6's 2-band
+    1080p scattered batch) and tools/brute_cases.py's inputs, with the
+    plan (slices) the device chose for each batch; (b) each timed beside
+    its bound and the other trace kernels; (c) the routes, by launch
+    counts.  Returns (results, kernel entries)."""
     from royaltracer_dx_tpu_torch import cli
     from royaltracer_dx_tpu_torch.config import RenderConfig
     from royaltracer_dx_tpu_torch.ops import brute_trace as bt
@@ -3182,8 +3266,9 @@ def phase_brute(out_dir, rates, mismatches):
         print(f"  {name}: {res['ctas_per_sm']} CTAs of {res['threads']} "
               f"threads resident per SM, {res['registers']} registers per "
               f"thread, {res['local_bytes']} B spilled, "
-              f"{res['shared_bytes']} B of shared memory per CTA",
-              flush=True)
+              f"{res['shared_bytes']} B of shared memory per CTA"
+              + (f", persistent grid {res['grid']} CTAs" if res["grid"]
+                 else ""), flush=True)
 
     # ---- (c) the routes: the CLI's default Cornell run, a 512x512 menger
     # ReSTIR frame
@@ -3210,7 +3295,9 @@ def phase_brute(out_dir, rates, mismatches):
         fail("cornell cli: radiance is not finite and positive")
     out["cornell_cli"] = dict(seconds=secs, frame_ms=res["frame_ms"],
                               launches=cornell_launches,
-                              radiance_mean=float(img.mean()))
+                              radiance_mean=float(img.mean()),
+                              brute_frame=brute_frame_ms(
+                                  "cornell CLI", res["renderer"].render))
     del res
 
     scene, camera = menger_scene()
@@ -3231,7 +3318,9 @@ def phase_brute(out_dir, rates, mismatches):
              and got["stream_any"]) or got["brute_any"] or other):
         fail(f"menger 512x512 frame: launches {menger_launches}, others "
              f"{other}")
-    out["menger_512"] = dict(frame_ms=ms, launches=menger_launches)
+    out["menger_512"] = dict(frame_ms=ms, launches=menger_launches,
+                             brute_frame=brute_frame_ms("menger 512x512",
+                                                        r.render))
     sa_m = r.scene_arrays
     del r
 
@@ -3251,13 +3340,17 @@ def phase_brute(out_dir, rates, mismatches):
         ("cornell_cli", "any"): (
             "Cornell CLI's busiest any-hit batch",
             cornell_calls.largest["brute_any"][1]),
+        ("band_1080p", "closest"): (
+            "a 1920x1080 menger band's busiest scattered batch (2 bands)",
+            band),
     }
     res_b = {}
     for (scene_name, kind), (label, args) in batches.items():
         plain_ms, k_out = brute_check(label, kind, args, mismatches)
         tests = k_out[1] if kind == "any" else None
+        plans = brute_plans(label, kind, args)
         row = brute_timed(label, kind, args, rates, tests)
-        row.update(plain_ms=plain_ms)
+        row.update(plain_ms=plain_ms, plans=plans)
         print(f"    plain version {plain_ms:.3f} ms, bit-equal to the kernel",
               flush=True)
         res_b[f"{scene_name}_{kind}"] = row
@@ -3281,6 +3374,9 @@ def phase_brute(out_dir, rates, mismatches):
             launches=cornell_launches[name] + menger_launches[name],
             launches_by_path=dict(cornell_cli=cornell_launches[name],
                                   menger_512=menger_launches[name]),
+            frame_device_ms_by_path={
+                path: out[path]["brute_frame"][name]["device_ms"]
+                for path in ("cornell_cli", "menger_512")},
             ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
             bound_by=big["bound_by"], nofma_floor_ms=big["nofma_floor_ms"],
             library_ms=None, shape_lanes=big["lanes"],
@@ -3468,7 +3564,8 @@ def main() -> None:
         # ---- phase 6: pixel-band sharding and the LBVH kernels
         print("phase 6: sharding and LBVH", flush=True)
         t0 = time.perf_counter()
-        sharding = phase_sharding((peak_flops, hbm), out_dir)
+        kept = {}
+        sharding = phase_sharding((peak_flops, hbm), out_dir, kept)
         lbvh, bvh_entries = phase_lbvh(
             out_dir, (peak_flops, hbm), mismatches,
             {k: v for k, v in scenes["terrain"]["rates"].items()})
@@ -3494,7 +3591,8 @@ def main() -> None:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         brute, brute_entries = phase_brute(args.out or tmp,
-                                           (peak_flops, hbm), mismatches)
+                                           (peak_flops, hbm), mismatches,
+                                           kept["band_1080p"])
     print(f"  brute phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- phases 10-11: the kernels line and the ok line

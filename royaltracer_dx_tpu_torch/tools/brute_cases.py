@@ -18,6 +18,16 @@ bit for bit.
     beyond_inf     triangles 1.1e30 along x hit by axis rays with t_max =
                    inf at t > INF = 1e30 (closest: a miss; any hit: not
                    occluded, as the plain version's t < INF test says)
+    signed_zero    triangles in the plane z = 0, then each again reversed;
+                   t_min = -2.  Half of the rays start on the plane inside
+                   a triangle, so the twins give t = +0.0 and -0.0 (equal:
+                   the lower index wins, with its own zero); the other
+                   half start 0.5 off the plane and head away from it, so
+                   their hits have negative t (the most negative wins)
+    huge_det       directions of length 1e38 and 3e38 (t_min = -1), so
+                   that |det| is at or beyond 2^126 on pairs that hit (1 /
+                   det rounds into the subnormals) or det overflows to inf
+                   (1 / det = 0: the plain version hits at t = 0)
 
 By default every case has N = 10,001 rays (not a multiple of the 256-ray
 CTA).
@@ -29,7 +39,8 @@ import numpy as np
 import torch
 
 BRUTE_CASES = ("odd_count", "one_tri", "no_tris", "bounds", "twins",
-               "grid_vertices", "non_finite", "beyond_inf")
+               "grid_vertices", "non_finite", "beyond_inf", "signed_zero",
+               "huge_det")
 N_RAYS = 10001
 
 
@@ -129,6 +140,27 @@ def brute_case(name: str, device, seed: int = 29, n: int = N_RAYS):
         d[:, 0] = np.where(np.arange(n) % 5 == 0, -1.0, 1.0)
         t_max = np.where(np.arange(n) % 2 == 0, np.inf, 1e4).astype(
             np.float32)
+    elif name == "signed_zero":
+        flat = _soup(rng, 200)
+        flat[:, :, 2] = 0.0
+        tris = np.concatenate([flat, flat[:, ::-1]])
+        w = rng.dirichlet((1.0, 1.0, 1.0), n).astype(np.float32)
+        o = np.einsum("nk,nkc->nc", w, flat[rng.integers(0, len(flat), n)])
+        off = np.arange(n) % 2 == 1
+        o[:, 2] = np.where(off, 0.5, 0.0)
+        d = rng.normal(size=(n, 3))
+        d[:, 2] = np.abs(d[:, 2]) + 0.2
+        d[off, :2] *= 0.2
+        d[~off, 2] *= np.where(rng.random(n) < 0.5, -1.0, 1.0)[~off]
+        d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+        o = o.astype(np.float32)
+        t_min = np.full(n, -2.0, np.float32)
+    elif name == "huge_det":
+        tris = _soup(rng, 300) * np.float32(4.0)
+        o, d = _rays(rng, tris, n)
+        length = np.where(np.arange(n) % 4 == 0, 3e38, 1e38)
+        d = (d * length[:, None]).astype(np.float32)
+        t_min = np.full(n, -1.0, np.float32)
     else:
         raise ValueError(f"unknown brute case {name!r}")
 

@@ -250,7 +250,10 @@ def test_brute_work_counts():
                              + 2_000 * 6)
     assert w["all_stages_fp32_ops"] == 32_000 * tst.MT_OPS
     assert w["bytes"] == 1536 * 32 + 32 * 36 + 1536 * 20
-    assert w["staged_bytes"] == 6 * 32 * 36
+    # the planes once a group of 1,024 listed rays
+    assert w["staged_bytes"] == 2 * 32 * 36
+    assert tbt.brute_work(stages, 32, 1536, closest=True,
+                          live=100)["staged_bytes"] == 32 * 36
     a = tbt.brute_work(dict(pairs=5_000, det=5_000, u=5_000, uv=5_000), 32,
                        1536, closest=False)
     assert a["fp32_ops"] == 5_000 * tst.MT_OPS
@@ -328,6 +331,198 @@ def test_checks_refuse_bad_inputs():
                           t_(soup(4)))
     with pytest.raises(ValueError, match="contiguous"):
         tbt.brute_any(t_(o), t_(d.T).T, t_(lo), t_(lo), t_(soup(4)))
+
+
+def test_traced_forms_read_planes_and_scalars():
+    """The brute entry points take [N, 3] rows, three [N] planes of any
+    stride (the dispatch's), and bounds as [N] tensors of any stride,
+    one-element tensors or Python numbers: the same answers."""
+    tris = t_(soup(300, seed=4))
+    o, d = rays(700, seed=22)
+    rows = t_(np.concatenate([o, d], 1))          # planes with stride 6
+    op = tuple(rows[:, c] for c in range(3))
+    dp = tuple(rows[:, 3 + c] for c in range(3))
+    hi = t_(np.full(1400, 2.5, np.float32))[::2]  # stride 2
+    ref = tbt.brute_closest(t_(o), t_(d), t_(np.full(700, 1e-4, np.float32)),
+                            t_(np.full(700, 2.5, np.float32)), tris)
+    for args in ((op, dp, 1e-4, hi), (op, dp, torch.tensor(1e-4), 2.5),
+                 (t_(o), t_(d), 1e-4, hi)):
+        got = tbt.brute_closest(*args, tris)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+        assert torch.equal(tbt.brute_any(*args, tris)[0],
+                           tbt.brute_any(t_(o), t_(d), 1e-4, 2.5, tris)[0])
+    assert int((ref[0] < 1e29).sum()) > 50
+    with pytest.raises(ValueError, match="planes"):
+        tbt.brute_closest(op[:2], dp, 1e-4, hi, tris)
+    with pytest.raises(ValueError, match="float32"):
+        tbt.brute_closest(op, dp, 1e-4, hi.double(), tris)
+
+
+# ------------------- the kernels' merge across slices --------------------
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.parametrize("slices", [1, 3, 7, 64])
+@pytest.mark.parametrize("case", BRUTE_CASES)
+def test_closest_slice_merge_model(case, slices):
+    """The closest kernel's merge in torch ops (each slice's first
+    minimum, the minimum of (order_key(t), index) over slices, t, u, v
+    recomputed from the winner) equals closest_hit_brute bit for bit on
+    every brute case: ties, signed zeros, negative t and t beyond INF
+    included."""
+    tris, o, d, lo, hi = brute_case(case, "cpu", n=1001)
+    h = tit.closest_hit_brute(o, d, tris, lo, hi)
+    got = tbt._closest_slices_plain(o, d, lo, hi, tris, slices)
+    for a, b in zip(got, (h.t, h.tri, h.u, h.v)):
+        assert a.dtype == b.dtype
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("slices", [1, 3, 7, 64])
+@pytest.mark.parametrize("case", BRUTE_CASES)
+def test_counted_any_slice_merge_model(case, slices):
+    """The counted any-hit kernel's merge (each slice's first ok index,
+    their minimum) gives first_hit_tests and any_hit_brute exactly."""
+    tris, o, d, lo, hi = brute_case(case, "cpu", n=1001)
+    occ, tests = tbt._first_hit_slices_plain(o, d, lo, hi, tris, slices)
+    assert torch.equal(occ, tit.any_hit_brute(o, d, tris, lo, hi))
+    assert torch.equal(tests, tbt.first_hit_tests(o, d, lo, hi, tris))
+
+
+def test_order_key_orders_floats():
+    """order_key on a sweep of floats (+-0, +-inf, subnormals, negatives,
+    values about 1e30, float32's extremes): -0.0 and +0.0 share a key,
+    and the keys order exactly as the floats do."""
+    f = np.float32
+    tiny = np.nextafter(f(0), f(1))
+    vals = [0.0, -0.0, np.inf, -np.inf, tiny, -tiny, 2 * tiny, -2 * tiny,
+            np.finfo(f).tiny, -np.finfo(f).tiny, 1.0, -1.0, 1e-30, -1e-30,
+            np.finfo(f).max, -np.finfo(f).max, 1e-4, -2.0, 3.5]
+    near = f(1e30)
+    for k in range(-3, 4):
+        x = near
+        for _ in range(abs(k)):
+            x = np.nextafter(x, f(np.inf) if k > 0 else f(0))
+        vals += [x, -x]
+    rng = np.random.default_rng(1)
+    vals += list(rng.standard_normal(200).astype(f) * f(1e3))
+    vals += list((rng.standard_normal(50) * 1e-42).astype(f))
+    x = torch.tensor(np.array(vals, f))
+    k = tbt.order_key(x)
+    assert int(tbt.order_key(torch.tensor([-0.0]))) == \
+        int(tbt.order_key(torch.tensor([0.0])))
+    assert bool(((k >= 0) & (k < 2**32)).all())
+    xs, ks = x.double(), k
+    for i in range(len(vals)):
+        assert torch.equal(xs[i] < xs, ks[i] < ks), vals[i]
+        assert torch.equal(xs[i] == xs, ks[i] == ks), vals[i]
+
+
+def test_signed_zero_case_holds_the_trap():
+    """tools/brute_cases.py's signed_zero case: twin triangles give t =
+    +0.0 at the lower index and -0.0 at the higher one for some rays (a
+    key that kept -0.0 below +0.0 would pick the twin), and some hits
+    have negative t."""
+    tris, o, d, lo, hi = brute_case("signed_zero", "cpu", n=1001)
+    k = tris.shape[0] // 2
+    t, _, _ = tit._mt_chunk_planar(
+        tuple(o[:, c][:, None] for c in range(3)),
+        tuple(d[:, c][:, None] for c in range(3)),
+        tuple(tris[:, 0, c] for c in range(3)),
+        tuple(tris[:, 1, c] - tris[:, 0, c] for c in range(3)),
+        tuple(tris[:, 2, c] - tris[:, 0, c] for c in range(3)),
+        lo[:, None], hi[:, None])
+    a, b = t[:, :k], t[:, k:]
+    trap = (a == 0) & (b == 0) & ~torch.signbit(a) & torch.signbit(b)
+    assert int(trap.sum()) > 20
+    h = tit.closest_hit_brute(o, d, tris, lo, hi)
+    assert int((h.t < 0).sum()) > 20
+    assert int(((h.t == 0) & torch.signbit(h.t)).sum()) > 20
+
+
+def test_signed_zero_matches_jax():
+    """The signed_zero case against the JAX package: hits, t and
+    occlusion; the triangle (the lowest index among equal t, signed zeros
+    equal) on the rays that start on the plane, whose t is exactly 0.
+    The other rays meet overlapping coplanar triangles at t within ulps
+    of each other, where XLA's FMA rounding picks another of them."""
+    tris, o, d, lo, hi = brute_case("signed_zero", "cpu", n=2001)
+    hj = jit_.closest_hit_brute(*(jnp.asarray(x.numpy())
+                                  for x in (o, d, tris, lo, hi)))
+    tt, tri, u, v = tbt.brute_closest(o, d, lo, hi, tris)
+    np.testing.assert_array_equal(tt.numpy() < 1e29, np.asarray(hj.t) < 1e29)
+    assert close(tt.numpy(), hj.t).all()
+    on_plane = tt.numpy() == 0
+    assert on_plane.sum() > 500
+    np.testing.assert_array_equal(tri.numpy()[on_plane],
+                                  np.asarray(hj.tri)[on_plane])
+    same = tri.numpy() == np.asarray(hj.tri)
+    assert same.mean() > 0.9
+    for a, b in ((u, hj.u), (v, hj.v)):
+        assert close(a.numpy()[same], np.asarray(b)[same]).all()
+    oj = np.asarray(jit_.any_hit_brute(*(jnp.asarray(x.numpy())
+                                         for x in (o, d, tris, lo, hi))))
+    np.testing.assert_array_equal(tbt.brute_any(o, d, lo, hi, tris)[0], oj)
+
+
+def test_slice_plan_and_source_constants():
+    """slice_plan's and any_rounds' constants are the package source's,
+    a dense
+    32-triangle batch takes one slice and a sparse one of 4,802
+    triangles enough slices for ITEMS_PER_CTA items a CTA (at most
+    MIN_SLICE triangles short of the triangle count)."""
+    import re
+
+    with open(tbt._SRC) as f:
+        src = f.read()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    assert const("THREADS") * const("RAYS") == tbt.RAYS_PER_ITEM
+    for name in ("MIN_SLICE", "ITEMS_PER_CTA", "FIRST_ROUND",
+                 "ROUND_GROWTH"):
+        assert const(name) == getattr(tbt, name), name
+    assert const("N_COUNTERS") == tbt._N_COUNTERS
+    assert const("MAX_ROUNDS") == tbt._MAX_ROUNDS
+    grid = 132 * 2
+    assert tbt.slice_plan(262_144, 32, grid)["slices"] == 1
+    sparse = tbt.slice_plan(48_608, 4_802, grid)
+    assert sparse["groups"] == 48 and sparse["slices"] == 22
+    assert sparse["items"] >= tbt.ITEMS_PER_CTA * grid
+    assert sparse["slices"] * sparse["slice_len"] >= 4_802
+    one = tbt.slice_plan(64, 4_802, grid)
+    assert one["slices"] == -(-4_802 // tbt.MIN_SLICE)
+    assert tbt.slice_plan(0, 4_802, grid)["items"] == 0
+    assert tbt.slice_plan(10, 0, grid) == dict(groups=1, slices=1,
+                                               slice_len=0, items=1)
+
+
+@pytest.mark.parametrize("t_count", [0, 1, 32, 256, 300, 600, 1100, 4802,
+                                     9800, 2**30])
+def test_any_rounds_cover_the_triangles(t_count):
+    """Any hit's rounds cover [0, T) in order without gaps, the first
+    FIRST_ROUND triangles (or all), each later round at most
+    ROUND_GROWTH times the triangles before it save the last, which is at
+    least as long as the round before it."""
+    rounds = tbt.any_rounds(t_count)
+    if not t_count:
+        assert rounds == []
+        return
+    assert [a for a, _ in rounds] == [0] + [b for _, b in rounds[:-1]]
+    assert rounds[-1][1] == t_count
+    assert all(b > a for a, b in rounds)
+    assert rounds[0][1] == tbt.FIRST_ROUND or len(rounds) == 1
+    for (a, b), (c, d) in zip(rounds, rounds[1:]):
+        if (c, d) != rounds[-1]:
+            assert d == c * tbt.ROUND_GROWTH
+        else:
+            assert d - c >= b - a
+    assert len(rounds) <= tbt._MAX_ROUNDS
 
 
 # ----------------------- the stream entry points -------------------------

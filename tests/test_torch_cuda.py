@@ -889,3 +889,118 @@ def test_cuda_cornell_takes_brute_force(tmp_path):
         assert all(tbt.LAUNCHES[k] > b_before[k] for k in b_before), renderer
         img = res["renderer"].radiance()
         assert np.isfinite(img).all() and img.mean() > 0
+
+
+def _brute_batch(kind, dev):
+    """(tri_verts, origins, dirs, t_min, t_max) on the card: "sparse" is
+    the menger sponge's 4,800 triangles with 64 live rays among 20,000
+    lanes (many slices); "dense" a 32-triangle soup with 262,144 live
+    rays (one slice)."""
+    rng = np.random.default_rng(41)
+    if kind == "sparse":
+        v, idx = menger_sponge(2)
+        tris = v[idx].astype(np.float32)
+        n = 20000
+        keep = np.zeros(n, bool)
+        keep[rng.choice(n, 64, replace=False)] = True
+    else:
+        c = rng.uniform(-1, 1, (32, 1, 3)).astype(np.float32)
+        tris = c + rng.uniform(-0.4, 0.4, (32, 3, 3)).astype(np.float32)
+        n = 262144
+        keep = np.ones(n, bool)
+    o = rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_max = np.where(keep, 4.0, -1.0).astype(np.float32)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    return (t(tris), t(o), t(d), t(np.full(n, 1e-4, np.float32)),
+            t(t_max))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["sparse", "dense"])
+def test_cuda_brute_slices_match_plain(kind):
+    """Both kernels and the counted build bit for bit against the plain
+    versions on a batch sparse enough for the device to pick many
+    slices (the atomic merge and the last slice's epilogue) and on a
+    dense one-slice batch; the plan read back from the launch."""
+    from royaltracer_dx_tpu_torch.ops import intersect as tit
+
+    dev = _card()
+    tris, o, d, lo, hi = _brute_batch(kind, dev)
+    k_c = tbt.brute_closest(o, d, lo, hi, tris)
+    k_a = tbt.brute_any(o, d, lo, hi, tris, stats=True)
+    k_o, _ = tbt.brute_any(o, d, lo, hi, tris)
+    torch.cuda.synchronize()
+    h = tit.closest_hit_brute(o, d, tris, lo, hi)
+    p_occ = tit.any_hit_brute(o, d, tris, lo, hi)
+    p_tests = tbt.first_hit_tests(o, d, lo, hi, tris)
+    for k, p in zip((*k_c, *k_a, k_o), (h.t, h.tri, h.u, h.v, p_occ,
+                                         p_tests, p_occ)):
+        assert k.dtype == p.dtype
+        assert torch.equal(_bits(k), _bits(p))
+    assert bool((k_c[0] < 1e30).any()) and bool(k_a[0].any())
+    live = int((lo < hi).sum())
+    for which in ("closest", "any", "any_counted"):
+        plan = tbt.launch_plan(which, o, d, lo, hi, tris)
+        assert plan["live"] == live
+        assert (plan["slices"] > 1) == (kind == "sparse"), (which, plan)
+        for r in plan["rounds"]:
+            want = tbt.slice_plan(r["live"], r["tri_hi"] - r["tri_lo"],
+                                  r["grid"])
+            assert r["slices"] == want["slices"], (which, plan)
+        assert plan["rounds"][-1]["live"] <= live
+        assert plan["rounds"][0]["tri_hi"] in (
+            tris.shape[0], min(tris.shape[0], tbt.FIRST_ROUND))
+
+
+@pytest.mark.gpu
+def test_cuda_brute_planes_equal_rows():
+    """Planar rays of any stride with scalar or strided bounds (the
+    dispatch's inputs, read in place) give the [N, 3] rows' bits."""
+    dev = _card()
+    for kind in ("sparse", "dense"):
+        tris, o, d, lo, hi = _brute_batch(kind, dev)
+        rows = torch.cat([o, d, hi[:, None]], dim=1)   # stride 7
+        op = tuple(rows[:, c] for c in range(3))
+        dp = tuple(rows[:, 3 + c] for c in range(3))
+        ref_c = tbt.brute_closest(o, d, lo, hi, tris)
+        ref_a = tbt.brute_any(o, d, lo, hi, tris, stats=True)
+        for args in ((op, dp, 1e-4, rows[:, 6]),
+                     (op, dp, torch.tensor(1e-4, device=dev), hi),
+                     (o, d, 1e-4, rows[:, 6])):
+            got_c = tbt.brute_closest(*args, tris)
+            got_a = tbt.brute_any(*args, tris, stats=True)
+            for k, p in zip((*got_c, *got_a), (*ref_c, *ref_a)):
+                assert torch.equal(_bits(k), _bits(p))
+        h = tbt.closest_hit_brute_traced(op, dp, tris, 1e-4, rows[:, 6])
+        assert torch.equal(_bits(h.t), _bits(ref_c[0]))
+        assert torch.equal(tbt.any_hit_brute_traced(op, dp, tris, 1e-4, hi),
+                           ref_a[0])
+
+
+@pytest.mark.gpu
+def test_cuda_brute_launch_does_not_synchronise():
+    """A wrapper call makes no host synchronisation: the live count stays
+    on the device (torch.cuda.set_sync_debug_mode raises on one)."""
+    dev = _card()
+    tris, o, d, lo, hi = _brute_batch("sparse", dev)
+    op = tuple(o[:, c] for c in range(3))
+    dp = tuple(d[:, c] for c in range(3))
+    tbt.brute_closest(o, d, lo, hi, tris)     # builds the library
+    torch.cuda.synchronize()
+    before = dict(tbt.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tbt.brute_closest(o, d, lo, hi, tris)
+        tbt.brute_any(o, d, lo, hi, tris, stats=True)
+        tbt.closest_hit_brute_traced(op, dp, tris, 1e-4, hi)
+        tbt.any_hit_brute_traced(op, dp, tris, 1e-4, hi)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert tbt.LAUNCHES["brute_closest"] == before["brute_closest"] + 2
+    assert tbt.LAUNCHES["brute_any"] == before["brute_any"] + 2
