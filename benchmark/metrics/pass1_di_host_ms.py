@@ -1,0 +1,12 @@
+"""Host ms of the program's ``pass1_di`` span (pass 1 (primary trace, RIS, visibility W)) in
+the last frame rendered without the profiler, the first frame of the
+traced work (the port's telemetry record)."""
+
+from harness import program_trace
+
+
+def read(ctx):
+    if ctx.get("kind") != "frame":
+        return None
+    return program_trace.span_host_ms(program_trace.unprofiled_frame(),
+                                      "pass1_di")

@@ -1,0 +1,12 @@
+"""Host ms of the program's ``pass1_gi`` span (the GI path sampling (init, bounces, final)) in
+the last frame rendered without the profiler, the first frame of the
+traced work (the port's telemetry record)."""
+
+from harness import program_trace
+
+
+def read(ctx):
+    if ctx.get("kind") != "frame":
+        return None
+    return program_trace.span_host_ms(program_trace.unprofiled_frame(),
+                                      "pass1_gi")

@@ -14,6 +14,8 @@ import math
 import numpy as np
 import torch
 
+from royaltracer_dx_tpu_torch.utils import telemetry
+
 
 def look_at(eye, center, up) -> np.ndarray:
     """glm::lookAtRH as a 4x4 column-vector-convention matrix
@@ -208,7 +210,8 @@ def generate_rays(camera_arrays: dict, width: int, height: int,
     pix = torch.stack([xs.to(torch.float32), ys.to(torch.float32)], dim=-1)
     if jitter is not None:
         pix = pix + jitter
-    dims = torch.tensor([width, height], dtype=torch.float32, device=dev)
+    dims = telemetry.to_device("camera_dims", [width, height], dev,
+                               torch.float32)
     d = (pix / dims) * 2.0 - 1.0
     one = torch.ones_like(d[:, 0])
     ndc = torch.stack([d[:, 0], -d[:, 1], one, one], dim=-1)

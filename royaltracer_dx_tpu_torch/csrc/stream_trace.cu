@@ -78,7 +78,9 @@
 //
 // Per-chunk stats, 3 ints: blocks visited, clusters tested, and ray-cluster
 // candidate pairs (the sum over valid rays and visited blocks of the
-// popcount of the ray's own cluster mask).
+// popcount of the ray's own cluster mask).  Where ``totals`` is not null,
+// each chunk that walked also adds its three stats to totals[0..2] (int64,
+// one atomicAdd each): the running counter of the program's telemetry.
 
 #include <cuda_runtime.h>
 
@@ -212,7 +214,8 @@ __global__ void __launch_bounds__(R, MIN_CTAS)
                   const float* __restrict__ blk_tris,
                   const float* __restrict__ blk_boxes,
                   float* __restrict__ out_tuv, int* __restrict__ out_slot,
-                  int* __restrict__ out_stats, int wb) {
+                  int* __restrict__ out_stats, int wb,
+                  unsigned long long* __restrict__ totals) {
   // per step parity and warp: early-exit bound, hot mask, candidate pairs
   __shared__ unsigned xch[2][WARPS][3];
 
@@ -455,6 +458,11 @@ __global__ void __launch_bounds__(R, MIN_CTAS)
     out_stats[(size_t)chunk * 3 + 0] = w;       // blocks visited
     out_stats[(size_t)chunk * 3 + 1] = ncl;     // clusters tested
     out_stats[(size_t)chunk * 3 + 2] = npairs;  // ray-cluster candidates
+    if (totals != nullptr && w > 0) {  // a chunk that did not walk adds 0
+      atomicAdd(totals + 0, (unsigned long long)w);
+      atomicAdd(totals + 1, (unsigned long long)ncl);
+      atomicAdd(totals + 2, (unsigned long long)npairs);
+    }
   }
 }
 
@@ -462,11 +470,11 @@ template <bool OCC>
 int launch(const float* rows, const int* wl, const float* went,
            const int* cnt, const float* blk_tris, const float* blk_boxes,
            float* out_tuv, int* out_slot, int* out_stats, int chunks, int wb,
-           void* stream) {
+           void* stream, unsigned long long* totals) {
   if (chunks > 0) {
     stream_kernel<OCC><<<chunks, R, 0, (cudaStream_t)stream>>>(
         rows, wl, went, cnt, blk_tris, blk_boxes, out_tuv, out_slot,
-        out_stats, wb);
+        out_stats, wb, totals);
   }
   return (int)cudaGetLastError();
 }
@@ -490,17 +498,18 @@ extern "C" {
 int stream_closest(const float* rows, const int* wl, const float* went,
                    const int* cnt, const float* blk_tris,
                    const float* blk_boxes, float* out_tuv, int* out_slot,
-                   int* out_stats, int chunks, int wb, void* stream) {
+                   int* out_stats, int chunks, int wb, void* stream,
+                   unsigned long long* totals) {
   return launch<false>(rows, wl, went, cnt, blk_tris, blk_boxes, out_tuv,
-                       out_slot, out_stats, chunks, wb, stream);
+                       out_slot, out_stats, chunks, wb, stream, totals);
 }
 
 int stream_any(const float* rows, const int* wl, const float* went,
                const int* cnt, const float* blk_tris, const float* blk_boxes,
                float* out_tuv, int* out_slot, int* out_stats, int chunks,
-               int wb, void* stream) {
+               int wb, void* stream, unsigned long long* totals) {
   return launch<true>(rows, wl, went, cnt, blk_tris, blk_boxes, out_tuv,
-                      out_slot, out_stats, chunks, wb, stream);
+                      out_slot, out_stats, chunks, wb, stream, totals);
 }
 
 // out[0..2]: resident CTAs per SM, registers per thread and static shared

@@ -21,7 +21,8 @@ ops/stream_trace.py, with the Morton presort on windowed scenes,
 ``STREAM_AUTO_MIN_TRIS`` triangles, and scattered closest-hit batches of
 fewer than 2^20 rays on flat-path scenes go to brute force too.  Each
 route launches its kernels for CUDA tensors and runs their plain versions
-for CPU tensors.
+for CPU tensors.  Each batch is counted and spanned as
+``trace.<query>.<route>`` (utils/telemetry.py).
 
 The JAX package splits trace batches above 4M rays into sequential chunks
 aligned to 128 rays (``_chunked_rays``, :143-168) to fit TPU HBM; on an
@@ -67,6 +68,7 @@ from royaltracer_dx_tpu_torch.ops.traverse import any_hit_bvh, closest_hit_bvh
 from royaltracer_dx_tpu_torch.scene.types import SceneArrays
 from royaltracer_dx_tpu_torch.utils import math3d as m3
 from royaltracer_dx_tpu_torch.utils import pvec as pv
+from royaltracer_dx_tpu_torch.utils import telemetry
 from royaltracer_dx_tpu_torch.utils.rng import (
     tea_batch,
     tea_batch_at,
@@ -177,17 +179,19 @@ def _closest_dispatch(scene: SceneArrays, origins, dirs, cfg: RenderConfig,
     op, dp = as_planes3(origins), as_planes3(dirs)
     n = op[0].shape[0]
     mode = trace_mode(scene, cfg, n, coherent, True)
-    if mode == "bvh":
-        return closest_hit_bvh(op, dp, scene.bvh, t_min, t_max)
-    if mode == "cluster":
-        tile = cluster_tile_for(n, cfg.cluster_tile)
-        return closest_hit_clustered(op, dp, scene.clusters, t_min, t_max,
-                                     tile=tile)
-    if mode == "stream":
-        return closest_hit_stream_xla(op, dp, scene.stream, t_min, t_max,
-                                      wb=cfg.stream_wb,
-                                      presort=_wants_presort(scene))
-    return closest_hit_brute_traced(op, dp, scene.tri_verts, t_min, t_max)
+    with telemetry.trace("closest", mode, n):
+        if mode == "bvh":
+            return closest_hit_bvh(op, dp, scene.bvh, t_min, t_max)
+        if mode == "cluster":
+            tile = cluster_tile_for(n, cfg.cluster_tile)
+            return closest_hit_clustered(op, dp, scene.clusters, t_min,
+                                         t_max, tile=tile)
+        if mode == "stream":
+            return closest_hit_stream_xla(op, dp, scene.stream, t_min, t_max,
+                                          wb=cfg.stream_wb,
+                                          presort=_wants_presort(scene))
+        return closest_hit_brute_traced(op, dp, scene.tri_verts, t_min,
+                                        t_max)
 
 
 def _any_dispatch(scene: SceneArrays, origins, dirs, cfg: RenderConfig,
@@ -196,17 +200,18 @@ def _any_dispatch(scene: SceneArrays, origins, dirs, cfg: RenderConfig,
     op, dp = as_planes3(origins), as_planes3(dirs)
     n = op[0].shape[0]
     mode = trace_mode(scene, cfg, n, True, False)
-    if mode == "bvh":
-        return any_hit_bvh(op, dp, scene.bvh, t_min, t_max)
-    if mode == "cluster":
-        tile = cluster_tile_for(n, cfg.cluster_tile)
-        return any_hit_clustered(op, dp, scene.clusters, t_min, t_max,
-                                 tile=tile)
-    if mode == "stream":
-        return any_hit_stream_xla(op, dp, scene.stream, t_min, t_max,
-                                  wb=cfg.stream_wb,
-                                  presort=_wants_presort(scene))
-    return any_hit_brute_traced(op, dp, scene.tri_verts, t_min, t_max)
+    with telemetry.trace("any", mode, n):
+        if mode == "bvh":
+            return any_hit_bvh(op, dp, scene.bvh, t_min, t_max)
+        if mode == "cluster":
+            tile = cluster_tile_for(n, cfg.cluster_tile)
+            return any_hit_clustered(op, dp, scene.clusters, t_min, t_max,
+                                     tile=tile)
+        if mode == "stream":
+            return any_hit_stream_xla(op, dp, scene.stream, t_min, t_max,
+                                      wb=cfg.stream_wb,
+                                      presort=_wants_presort(scene))
+        return any_hit_brute_traced(op, dp, scene.tri_verts, t_min, t_max)
 
 
 def trace_closest(scene: SceneArrays, origins, dirs, cfg: RenderConfig,

@@ -34,9 +34,12 @@ Per-chunk stats, [chunks, 3] int32, equal for kernel and plain version:
 blocks visited, clusters tested (hot for some ray of the chunk), and
 ray-cluster candidate pairs (the sum over the chunk's valid rays and
 visited blocks of the clusters whose box the ray's own slab test
-passed).  ``stream_work`` turns them into the bytes and FP32 operations
-a call needs whatever implements it, and ``bound_ms`` into the least time
-a card could take for them.
+passed).  Every call also adds its stats, summed over the chunks, to the
+telemetry's stream counter on its device (utils/telemetry.py): the
+kernels with one atomicAdd a column from each chunk that walked, the
+plain version with a torch sum.  ``stream_work`` turns them into the
+bytes and FP32 operations a call needs whatever implements it, and
+``bound_ms`` into the least time a card could take for them.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ import torch
 
 from royaltracer_dx_tpu_torch.ops.bvh import morton_codes
 from royaltracer_dx_tpu_torch.ops.intersect import INF, Hit, as_planes3
+from royaltracer_dx_tpu_torch.utils import telemetry
 
 G = 64                 # triangles per cluster
 S = 32                 # clusters per block (block = 2048 triangles)
@@ -613,9 +617,10 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LIB = None
 BUILD_INFO: dict = {}
 # the C interface of csrc/stream_trace.cu: ctypes argument types by name
+# (the last pointer is the int64 [3] counter the stats are added to)
 STREAM_SIGNATURES = {
     name: [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int,
-                                   ctypes.c_void_p]
+                                   ctypes.c_void_p, ctypes.c_void_p]
     for name in ("stream_closest", "stream_any")}
 
 
@@ -728,7 +733,10 @@ def _launch(name, rows, wl, went, cnt, blk_tris, blk_boxes, lib=None):
     """Launch kernel ``name`` of the package's library (or of ``lib``, a
     build of the same C interface) on PyTorch's current stream of the
     inputs' device, made the current device for the launch (a launch on
-    another card's stream computes nothing valid)."""
+    another card's stream computes nothing valid).  The kernel adds its
+    stats to ``telemetry.stream_counter`` of that device; a build of an
+    earlier source, whose C interface ends at the stream, ignores that
+    last argument."""
     lib = lib or build_kernels()
     n_pad = rows.shape[0]
     chunks = n_pad // RAYS_PER_CHUNK
@@ -736,12 +744,14 @@ def _launch(name, rows, wl, went, cnt, blk_tris, blk_boxes, lib=None):
     tuv = torch.empty((n_pad, 3), dtype=torch.float32, device=dev)
     slot = torch.empty((n_pad,), dtype=torch.int32, device=dev)
     stats = torch.empty((chunks, 3), dtype=torch.int32, device=dev)
+    totals = telemetry.stream_counter(dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, name)(
             rows.data_ptr(), wl.data_ptr(), went.data_ptr(), cnt.data_ptr(),
             blk_tris.data_ptr(), blk_boxes.data_ptr(), tuv.data_ptr(),
-            slot.data_ptr(), stats.data_ptr(), chunks, wl.shape[1], stream)
+            slot.data_ptr(), stats.data_ptr(), chunks, wl.shape[1], stream,
+            totals.data_ptr())
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
     LAUNCHES[name] += 1
@@ -758,7 +768,9 @@ def stream_closest(rows, wl, went, cnt, blk_tris, blk_boxes):
     if rows.is_cuda:
         return _launch("stream_closest", rows, wl, went, cnt, blk_tris,
                        blk_boxes)
-    return _stream_plain(rows, wl, went, cnt, blk_tris, blk_boxes, False)
+    out = _stream_plain(rows, wl, went, cnt, blk_tris, blk_boxes, False)
+    telemetry.count_stream(out[2])
+    return out
 
 
 def stream_any(rows, wl, went, cnt, blk_tris, blk_boxes):
@@ -768,7 +780,9 @@ def stream_any(rows, wl, went, cnt, blk_tris, blk_boxes):
     if rows.is_cuda:
         return _launch("stream_any", rows, wl, went, cnt, blk_tris,
                        blk_boxes)
-    return _stream_plain(rows, wl, went, cnt, blk_tris, blk_boxes, True)
+    out = _stream_plain(rows, wl, went, cnt, blk_tris, blk_boxes, True)
+    telemetry.count_stream(out[2])
+    return out
 
 
 # ------------------------------- tracing --------------------------------
@@ -778,29 +792,33 @@ def prepare_stream(origins, dirs, accel: StreamAccel, t_min, t_max,
                    wb: int):
     """Pad to whole chunks and build the kernel inputs
     (stream_trace.py:731-761).  Padding lanes get dirs 1.0, t_max -1 and
-    valid 0, so they never hit.  Returns (rows, wl, went, cnt)."""
-    o = torch.stack(as_planes3(origins), dim=1).to(torch.float32)
-    d = torch.stack(as_planes3(dirs), dim=1).to(torch.float32)
-    n = o.shape[0]
-    dev = o.device
-    t_min = torch.as_tensor(t_min, dtype=torch.float32, device=dev).expand(n)
-    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(n)
-    n_pad = -(-n // RAYS_PER_CHUNK) * RAYS_PER_CHUNK
-    pad = n_pad - n
-    rows = torch.zeros((n_pad, 16), dtype=torch.float32, device=dev)
-    rows[:n, 0:3] = o
-    rows[:n, 3:6] = d
-    rows[:n, 6] = t_min
-    rows[:n, 7] = t_max
-    rows[:n, 8] = 1.0
-    if pad:
-        rows[n:, 3:6] = 1.0
-        rows[n:, 7] = -1.0
-    # a worklist covering EVERY block never overflows (:752-756)
-    wb_eff = max(wb, accel.num_blocks)
-    wl, went, cnt = _build_worklists(rows[:, 0:3], rows[:, 3:6], rows[:, 6],
-                                     rows[:, 7], accel, wb_eff)
-    return rows, wl, went, cnt
+    valid 0, so they never hit.  Returns (rows, wl, went, cnt).  Spanned
+    as ``trace.prepare``."""
+    with telemetry.span("trace.prepare"):
+        o = torch.stack(as_planes3(origins), dim=1).to(torch.float32)
+        d = torch.stack(as_planes3(dirs), dim=1).to(torch.float32)
+        n = o.shape[0]
+        dev = o.device
+        t_min, t_max = (telemetry.to_device("stream_bounds", x, dev,
+                                            torch.float32).expand(n)
+                        for x in (t_min, t_max))
+        n_pad = -(-n // RAYS_PER_CHUNK) * RAYS_PER_CHUNK
+        pad = n_pad - n
+        rows = torch.zeros((n_pad, 16), dtype=torch.float32, device=dev)
+        rows[:n, 0:3] = o
+        rows[:n, 3:6] = d
+        rows[:n, 6] = t_min
+        rows[:n, 7] = t_max
+        rows[:n, 8] = 1.0
+        if pad:
+            rows[n:, 3:6] = 1.0
+            rows[n:, 7] = -1.0
+        # a worklist covering EVERY block never overflows (:752-756)
+        wb_eff = max(wb, accel.num_blocks)
+        wl, went, cnt = _build_worklists(rows[:, 0:3], rows[:, 3:6],
+                                         rows[:, 6], rows[:, 7], accel,
+                                         wb_eff)
+        return rows, wl, went, cnt
 
 
 def closest_hit_stream(origins, dirs, accel: StreamAccel, t_min=1e-4,
@@ -839,16 +857,17 @@ def coherence_order(origins, dirs, accel: StreamAccel):
     caller's order.  AoS or planar rays; returns (order, inverse) int32.
     ``closest_hit_stream_xla`` / ``any_hit_stream_xla`` route a batch
     through it with ``presort=True``, as the dispatch does on windowed
-    scenes."""
-    o, d = as_planes3(origins), as_planes3(dirs)
-    lo = torch.amin(accel.top_lo, dim=0)
-    hi = torch.amax(accel.top_hi, dim=0)
-    step = 0.25 * torch.max(hi - lo)
-    pt = torch.stack([o[c] + d[c] * step for c in range(3)], dim=-1)
-    key = morton_codes(pt, lo, hi)
-    order = torch.sort(key, stable=True).indices
-    inverse = torch.sort(order, stable=True).indices
-    return order.to(torch.int32), inverse.to(torch.int32)
+    scenes.  Spanned as ``trace.prepare``."""
+    with telemetry.span("trace.prepare"):
+        o, d = as_planes3(origins), as_planes3(dirs)
+        lo = torch.amin(accel.top_lo, dim=0)
+        hi = torch.amax(accel.top_hi, dim=0)
+        step = 0.25 * torch.max(hi - lo)
+        pt = torch.stack([o[c] + d[c] * step for c in range(3)], dim=-1)
+        key = morton_codes(pt, lo, hi)
+        order = torch.sort(key, stable=True).indices
+        inverse = torch.sort(order, stable=True).indices
+        return order.to(torch.int32), inverse.to(torch.int32)
 
 
 # The JAX package's stream entry points (stream_trace.py:1720-1813).  The
@@ -865,8 +884,8 @@ def coherence_order(origins, dirs, accel: StreamAccel):
 
 def _bounds(t_min, t_max, like: torch.Tensor):
     """Scalar or [N] bounds as float32 [N] on ``like``'s device."""
-    return tuple(torch.as_tensor(x, dtype=torch.float32,
-                                 device=like.device).expand(like.shape[0])
+    return tuple(telemetry.to_device("stream_bounds", x, like.device,
+                                     torch.float32).expand(like.shape[0])
                  for x in (t_min, t_max))
 
 

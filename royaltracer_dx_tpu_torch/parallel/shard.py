@@ -27,6 +27,12 @@ the port is a single controller too: one process takes a list of
     card, one after another.
 ``torch.distributed`` is not used: NCCL refuses two ranks on one GPU, so a
 process-per-band design could not run the repeated-device case at all.
+
+The frame carries the single-device frame's telemetry spans
+(utils/telemetry.py), each over all bands: ``pass1_di``, ``pass1_gi``,
+``pass2_temporal`` (the halo extension of the last tables included),
+``pass3_spatial`` (the packing of the current tables and their halo
+included), ``accumulate``, and ``sync.<site>`` around each host wait.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from royaltracer_dx_tpu_torch.render.framebuffer import Framebuffer, accumulate
 from royaltracer_dx_tpu_torch.render.megakernel import trace_paths
 from royaltracer_dx_tpu_torch.utils import math3d as m3
 from royaltracer_dx_tpu_torch.utils import pvec as pv
+from royaltracer_dx_tpu_torch.utils import telemetry
 
 _F = torch.float32
 
@@ -94,7 +101,8 @@ def to_device(obj, dev: torch.device):
 def _sync(devices) -> None:
     for d in set(devices):
         if d.type == "cuda":
-            torch.cuda.synchronize(d)
+            with telemetry.span("sync.bands"):
+                torch.cuda.synchronize(d)
 
 
 def make_sharded_trace(devices, cfg: RenderConfig):
@@ -158,11 +166,10 @@ def halo_extend(tables: list, devices: list, hw: int) -> list:
     return out
 
 
-def _stage1_local(scene, cam, frame, xs, ys, cfg, compact: bool):
-    """Pass 1 and the GI path sampling on one band (shard.py:104-123).
-    Returns (res_di, res_gi, sdata, occ [1 + gi_bounces] on the band's
+def _gi_local(scene, gi_in, seed, cfg, compact: bool):
+    """The GI path sampling on one band (shard.py:104-123), after its
+    ``pass1_di``.  Returns (res_gi, occ [1 + gi_bounces] on the band's
     device: the sampling share, then each GI bounce's active share)."""
-    res_di, sdata, gi_in, seed = rr.pass1_di(scene, cam, frame, cfg, xs, ys)
     st = rr.pass1_gi_init(scene, gi_in, seed, cfg)
     occ = [gi_in["sampling"].to(_F).mean()]
     bounce_fn = rr.pass1_gi_bounce_compact if compact else rr.pass1_gi_bounce
@@ -170,7 +177,7 @@ def _stage1_local(scene, cam, frame, xs, ys, cfg, compact: bool):
         occ.append(st["active"].to(_F).mean())
         st = bounce_fn(scene, cfg, st, b)
     res_gi, _ = rr.pass1_gi_final(scene, gi_in, st, cfg)
-    return res_di, res_gi, sdata, torch.stack(occ)
+    return res_gi, torch.stack(occ)
 
 
 def _stage3_local(scene, cam, frame, res_di, res_gi, sdata, packed_di,
@@ -196,8 +203,12 @@ def _stage3_local(scene, cam, frame, res_di, res_gi, sdata, packed_di,
 def mean_occupancy(occ: list) -> np.ndarray:
     """The bands' occupancy vectors averaged on the host, float64 (the
     JAX package's ``pmean``; the bands are equal in size).  Reading them
-    waits for the work enqueued before."""
-    return np.mean([o.double().cpu().numpy() for o in occ], axis=0)
+    waits for the work enqueued before (one ``sync.occupancy`` a band)."""
+    host = []
+    for o in occ:
+        with telemetry.span("sync.occupancy"):
+            host.append(o.double().cpu().numpy())
+    return np.mean(host, axis=0)
 
 
 def make_sharded_restir_stages(devices, cfg: RenderConfig,
@@ -220,39 +231,48 @@ def make_sharded_restir_stages(devices, cfg: RenderConfig,
     row0 = [i * band_h - halo for i in range(n_dev)]
 
     def s1(scenes, cams, frame, xs, ys):
-        outs = [_stage1_local(scenes[i], cams[i], frame, xs[i], ys[i], cfg,
-                              compact) for i in range(n_dev)]
-        return tuple(list(x) for x in zip(*outs))
+        # pass 1 on every band, then the GI path sampling on every band;
+        # profile mode books both as "pass1"
+        with telemetry.span("pass1_di"):
+            di = [rr.pass1_di(scenes[i], cams[i], frame, cfg, xs[i], ys[i])
+                  for i in range(n_dev)]
+        with telemetry.span("pass1_gi", tick="pass1"):
+            gi = [_gi_local(scenes[i], di[i][2], di[i][3], cfg, compact)
+                  for i in range(n_dev)]
+        return ([d[0] for d in di], [g[0] for g in gi], [d[1] for d in di],
+                [g[1] for g in gi])
 
     def s2(scenes, cams, frame, res_di, res_gi, sdata, packed_di, packed_gi,
            xs, ys):
         # temporal reuse over the halo-extended last tables (:126-139)
-        if not cfg.temporal_reuse:
-            return res_di, res_gi
-        ext_di = halo_extend(packed_di, devs, hw)
-        ext_gi = halo_extend(packed_gi, devs, hw)
-        outs = [rr.pass2_temporal(scenes[i], cams[i], frame, res_di[i],
-                                  res_gi[i], sdata[i], ext_di[i], ext_gi[i],
-                                  cfg, xs=xs[i], ys=ys[i], row0=row0[i],
-                                  band_h=bh_ext)
-                for i in range(n_dev)]
-        return [o[0] for o in outs], [o[1] for o in outs]
+        with telemetry.span("pass2_temporal", tick="pass2_temporal"):
+            if not cfg.temporal_reuse:
+                return res_di, res_gi
+            ext_di = halo_extend(packed_di, devs, hw)
+            ext_gi = halo_extend(packed_gi, devs, hw)
+            outs = [rr.pass2_temporal(scenes[i], cams[i], frame, res_di[i],
+                                      res_gi[i], sdata[i], ext_di[i],
+                                      ext_gi[i], cfg, xs=xs[i], ys=ys[i],
+                                      row0=row0[i], band_h=bh_ext)
+                    for i in range(n_dev)]
+            return [o[0] for o in outs], [o[1] for o in outs]
 
     def s3(scenes, cams, frame, res_di, res_gi, sdata, packed_di, packed_gi,
            xs, ys):
-        rd = rr._rec_dtype(cfg)
-        cur_di = [rr._pack_record(sdata[i], res_di[i], rr._DI_KEYS, rd)
-                  for i in range(n_dev)]
-        cur_gi = [rr._pack_record(sdata[i], res_gi[i], rr._GI_KEYS, rd)
-                  for i in range(n_dev)]
-        ext_di = halo_extend(cur_di, devs, hw)
-        ext_gi = halo_extend(cur_gi, devs, hw)
-        outs = [_stage3_local(scenes[i], cams[i], frame, res_di[i],
-                              res_gi[i], sdata[i], packed_di[i],
-                              packed_gi[i], ext_di[i], ext_gi[i], xs[i],
-                              ys[i], cfg, row0[i], bh_ext)
-                for i in range(n_dev)]
-        return tuple(list(x) for x in zip(*outs))
+        with telemetry.span("pass3_spatial", tick="pass3_spatial"):
+            rd = rr._rec_dtype(cfg)
+            cur_di = [rr._pack_record(sdata[i], res_di[i], rr._DI_KEYS, rd)
+                      for i in range(n_dev)]
+            cur_gi = [rr._pack_record(sdata[i], res_gi[i], rr._GI_KEYS, rd)
+                      for i in range(n_dev)]
+            ext_di = halo_extend(cur_di, devs, hw)
+            ext_gi = halo_extend(cur_gi, devs, hw)
+            outs = [_stage3_local(scenes[i], cams[i], frame, res_di[i],
+                                  res_gi[i], sdata[i], packed_di[i],
+                                  packed_gi[i], ext_di[i], ext_gi[i], xs[i],
+                                  ys[i], cfg, row0[i], bh_ext)
+                    for i in range(n_dev)]
+            return tuple(list(x) for x in zip(*outs))
 
     return s1, s2, s3
 
@@ -372,9 +392,7 @@ class ShardedRestirRenderer:
         """The camera matrices on ``device`` (the first band's by
         default), with the previous frame's view and projection."""
         dev = device or self.device
-        mats = self.camera.matrices(self.cfg.width / self.cfg.height)
-        cam = {k: torch.as_tensor(v, dtype=_F, device=dev)
-               for k, v in mats.items()}
+        cam = rr.camera_arrays(self.camera, self.cfg, dev)
         cam["prev_view"] = self._prev_view.to(dev)
         cam["prev_proj"] = self._prev_proj.to(dev)
         return cam
@@ -397,34 +415,35 @@ class ShardedRestirRenderer:
             frame = time.time_ns() & 0xFFFFFFFF
         else:
             frame = self.frame
-        cams_by_dev = {d: self._camera_arrays(d) for d in self._scenes}
-        scenes = [self._scenes[b.device] for b in self.bands]
-        cams = [cams_by_dev[b.device] for b in self.bands]
-        xs = [b.xs for b in self.bands]
-        ys = [b.ys for b in self.bands]
-        pdi = [b.packed_di for b in self.bands]
-        pgi = [b.packed_gi for b in self.bands]
         t0 = time.perf_counter()
         pass_times: dict = {}
-        tick = (rr.pass_timer(self._scenes, t0, pass_times) if self.profile
-                else (lambda label: None))
-        s1, s2, s3 = self._stages
-        res_di, res_gi, sdata, occ = s1(scenes, cams, frame, xs, ys)
-        tick("pass1")
-        res_di, res_gi = s2(scenes, cams, frame, res_di, res_gi, sdata, pdi,
-                            pgi, xs, ys)
-        tick("pass2_temporal")
-        sample, new_di, new_gi, l1 = s3(scenes, cams, frame, res_di, res_gi,
-                                        sdata, pdi, pgi, xs, ys)
-        tick("pass3_spatial")
-        for i, b in enumerate(self.bands):
-            cam = cams[i]
-            changed = torch.any(torch.abs(cam["view"] - cam["prev_view"])
-                                > S_BIAS)
-            b.fb = accumulate(b.fb, sample[i], changed, cfg.max_accum_frames)
-            b.packed_di, b.packed_gi, b.l1 = new_di[i], new_gi[i], l1[i]
-        ov = mean_occupancy(occ)          # waits for the frame
-        _sync(self.devices)
+        timer = (telemetry.PassTimer(self._scenes, pass_times)
+                 if self.profile else None)
+        with telemetry.frame(timer):
+            cams_by_dev = {d: self._camera_arrays(d) for d in self._scenes}
+            scenes = [self._scenes[b.device] for b in self.bands]
+            cams = [cams_by_dev[b.device] for b in self.bands]
+            xs = [b.xs for b in self.bands]
+            ys = [b.ys for b in self.bands]
+            pdi = [b.packed_di for b in self.bands]
+            pgi = [b.packed_gi for b in self.bands]
+            s1, s2, s3 = self._stages
+            res_di, res_gi, sdata, occ = s1(scenes, cams, frame, xs, ys)
+            res_di, res_gi = s2(scenes, cams, frame, res_di, res_gi, sdata,
+                                pdi, pgi, xs, ys)
+            sample, new_di, new_gi, l1 = s3(scenes, cams, frame, res_di,
+                                            res_gi, sdata, pdi, pgi, xs, ys)
+            with telemetry.span("accumulate"):
+                for i, b in enumerate(self.bands):
+                    cam = cams[i]
+                    changed = torch.any(
+                        torch.abs(cam["view"] - cam["prev_view"]) > S_BIAS)
+                    b.fb = accumulate(b.fb, sample[i], changed,
+                                      cfg.max_accum_frames)
+                    b.packed_di, b.packed_gi, b.l1 = (new_di[i], new_gi[i],
+                                                      l1[i])
+            ov = mean_occupancy(occ)          # waits for the frame
+            _sync(self.devices)
         dt = time.perf_counter() - t0
         self._prev_view = cams_by_dev[self.device]["view"]
         self._prev_proj = cams_by_dev[self.device]["proj"]

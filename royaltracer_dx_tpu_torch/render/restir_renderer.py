@@ -39,6 +39,11 @@ compaction (``pass1_gi_bounce_compact``) runs where
 ``restir.wants_gi_compaction`` says; ``profile = True`` times each pass
 and reports the occupancy.
 
+Each frame is spanned (utils/telemetry.py) as ``frame``, its passes as
+``pass1_di``, ``pass1_gi``, ``pass2_temporal`` (``pack_last`` inside it),
+``pass3_spatial`` and ``accumulate``, and every host wait in it as
+``sync.<site>``; profile mode's times are booked at the pass spans' exits.
+
 Pixel-band sharding (parallel/shard.py) runs the same passes on a band of
 rows: ``xs`` / ``ys`` are the band's GLOBAL pixel coordinates (seeds and
 camera rays), and pass 2 / pass 3 index their gather tables through the
@@ -74,6 +79,7 @@ from royaltracer_dx_tpu_torch.render.framebuffer import Framebuffer, accumulate
 from royaltracer_dx_tpu_torch.scene.scene import Scene
 from royaltracer_dx_tpu_torch.utils import math3d as m3
 from royaltracer_dx_tpu_torch.utils import pvec as pv
+from royaltracer_dx_tpu_torch.utils import telemetry
 from royaltracer_dx_tpu_torch.utils.rng import (
     pixel_seed,
     tea_batch_at,
@@ -315,13 +321,15 @@ def pass1_gi_bounce_compact(scene, cfg: RenderConfig, st: dict,
 
     The JAX package picks the half or the full width on the device with
     ``lax.cond(cnt <= half, ...)``; here that choice is one host read of
-    the active count per bounce."""
+    the active count per bounce (spanned as ``sync.gi_compaction``)."""
     active = st["active"]
     half = active.shape[0] // 2
     order = torch.argsort((~active).to(torch.uint8), stable=True)
     inverse = torch.argsort(order, stable=True)
     stp = _tree_map(lambda a: a[order], st)
-    if int(active.sum()) <= half:
+    with telemetry.span("sync.gi_compaction"):
+        n_active = int(active.sum())
+    if n_active <= half:
         head = restir_gi.gi_bounce(
             scene, cfg, _tree_map(lambda a: a[:half], stp), bounce)
         stp = _tree_map(lambda h, t: torch.cat([h, t[half:]]), head, stp)
@@ -828,59 +836,64 @@ def _pack_last(last_di: dict, last_gi: dict, last_sdata: dict,
 
 
 def _frame_body(scene, cam_base: dict, cfg: RenderConfig, st: dict,
-                frame: int, tick=None):
+                frame: int):
     """One full ReSTIR frame as a state -> state function (:994-1042).
 
     st: dict(last_di, last_gi, last_sdata, fb, l1, prev_view, prev_proj).
-    ``tick(label)``, when given, is called after each pass (profile mode).
-    Returns (new state, occupancy [1 + gi_bounces] on the device: the
-    pass-1 sampling share and each GI bounce's active share, for the ray
-    accounting of RestirRenderer.metrics)."""
-    tick = tick or (lambda label: None)
+    Each pass is a telemetry span; in a frame with a ``PassTimer`` (profile
+    mode) each pass span books its time on exit.  Returns (new state,
+    occupancy [1 + gi_bounces] on the device: the pass-1 sampling share
+    and each GI bounce's active share, for the ray accounting of
+    RestirRenderer.metrics)."""
     cam = dict(cam_base, prev_view=st["prev_view"], prev_proj=st["prev_proj"])
-    res_di, sdata, gi_in, seed = pass1_di(scene, cam, frame, cfg)
-    tick("pass1_di")
-    occ = [gi_in["sampling"].to(_F).mean()]
-    gst = pass1_gi_init(scene, gi_in, seed, cfg)
-    # compaction pays two argsorts and two permutations of the whole
-    # state per bounce: only worth it where traces are expensive (:1144-
-    # 1152), so the decision is restir.wants_gi_compaction's
-    compact = restir.wants_gi_compaction(scene, cfg)
-    bounce_fn = pass1_gi_bounce_compact if compact else pass1_gi_bounce
-    for b in range(cfg.gi_bounces):
-        occ.append(gst["active"].to(_F).mean())
-        gst = bounce_fn(scene, cfg, gst, b)
-    res_gi, _ = pass1_gi_final(scene, gi_in, gst, cfg)
-    tick("pass1_gi")
-    if cfg.temporal_reuse:
-        packed_di, packed_gi = _pack_last(st["last_di"], st["last_gi"],
-                                          st["last_sdata"], _rec_dtype(cfg))
-        tick("pack_last")
-        res_di, res_gi = pass2_temporal(scene, cam, frame, res_di, res_gi,
-                                        sdata, packed_di, packed_gi, cfg)
-    tick("pass2_temporal")
-    sample, shaded, out_di, out_gi = pass3_spatial(
-        scene, cam, frame, res_di, res_gi, sdata, cfg)
-    tick("pass3_spatial")
-    sdata_s = from_planes({k: sdata[k] for k in _SD_KEYS})
-    changed = torch.any(torch.abs(cam["view"] - st["prev_view"]) > S_BIAS)
-    fb = accumulate(st["fb"], sample, changed, cfg.max_accum_frames)
+    with telemetry.span("pass1_di", tick="pass1_di"):
+        res_di, sdata, gi_in, seed = pass1_di(scene, cam, frame, cfg)
+    with telemetry.span("pass1_gi", tick="pass1_gi"):
+        occ = [gi_in["sampling"].to(_F).mean()]
+        gst = pass1_gi_init(scene, gi_in, seed, cfg)
+        # compaction pays two argsorts and two permutations of the whole
+        # state per bounce: only worth it where traces are expensive
+        # (:1144-1152), so the decision is restir.wants_gi_compaction's
+        compact = restir.wants_gi_compaction(scene, cfg)
+        bounce_fn = pass1_gi_bounce_compact if compact else pass1_gi_bounce
+        for b in range(cfg.gi_bounces):
+            occ.append(gst["active"].to(_F).mean())
+            gst = bounce_fn(scene, cfg, gst, b)
+        res_gi, _ = pass1_gi_final(scene, gi_in, gst, cfg)
+    with telemetry.span("pass2_temporal", tick="pass2_temporal"):
+        if cfg.temporal_reuse:
+            with telemetry.span("pack_last", tick="pack_last"):
+                packed_di, packed_gi = _pack_last(
+                    st["last_di"], st["last_gi"], st["last_sdata"],
+                    _rec_dtype(cfg))
+            res_di, res_gi = pass2_temporal(scene, cam, frame, res_di,
+                                            res_gi, sdata, packed_di,
+                                            packed_gi, cfg)
+    with telemetry.span("pass3_spatial", tick="pass3_spatial"):
+        sample, shaded, out_di, out_gi = pass3_spatial(
+            scene, cam, frame, res_di, res_gi, sdata, cfg)
+    with telemetry.span("accumulate"):
+        sdata_s = from_planes({k: sdata[k] for k in _SD_KEYS})
+        changed = torch.any(torch.abs(cam["view"] - st["prev_view"]) > S_BIAS)
+        fb = accumulate(st["fb"], sample, changed, cfg.max_accum_frames)
 
-    # ping-pong: pass 3 writes the last buffers only for shaded lanes
-    def pick(new: dict, old: dict) -> dict:
-        return {k: torch.where(shaded[:, None] if old[k].dim() == 2
-                               else shaded, new[k], old[k]) for k in old}
+        # ping-pong: pass 3 writes the last buffers only for shaded lanes
+        def pick(new: dict, old: dict) -> dict:
+            return {k: torch.where(shaded[:, None] if old[k].dim() == 2
+                                   else shaded, new[k], old[k])
+                    for k in old}
 
-    new_st = dict(
-        last_di=pick(from_planes(out_di), st["last_di"]),
-        last_gi=pick(from_planes(out_gi), st["last_gi"]),
-        last_sdata=pick(sdata_s, st["last_sdata"]),
-        fb=fb,
-        l1=sdata_s["l1"],
-        prev_view=cam["view"],
-        prev_proj=cam["proj"],
-    )
-    return new_st, torch.stack(occ)
+        new_st = dict(
+            last_di=pick(from_planes(out_di), st["last_di"]),
+            last_gi=pick(from_planes(out_gi), st["last_gi"]),
+            last_sdata=pick(sdata_s, st["last_sdata"]),
+            fb=fb,
+            l1=sdata_s["l1"],
+            prev_view=cam["view"],
+            prev_proj=cam["proj"],
+        )
+        occ = torch.stack(occ)
+    return new_st, occ
 
 
 def ray_metrics(cfg: RenderConfig, ov, dt: float, frame: int) -> dict:
@@ -909,19 +922,6 @@ def occupancy_metrics(cfg: RenderConfig, ov) -> dict:
     for b in range(cfg.gi_bounces):
         occupancy[f"gi_bounce{b}_active"] = float(ov[1 + b])
     return occupancy
-
-
-def pass_timer(devices, t0: float, pass_times: dict):
-    """Profile mode's tick: wait for ``devices``, then book the time since
-    the previous tick under ``label`` (:1130-1139).  Every tick is a
-    synchronisation, so profiled frames are indicative, not additive."""
-    def tick(label: str) -> None:
-        for d in devices:
-            if d.type == "cuda":
-                torch.cuda.synchronize(d)
-        now = time.perf_counter()
-        pass_times[label] = now - (t0 + sum(pass_times.values()))
-    return tick
 
 
 def check_config(scene: Scene, cfg: RenderConfig) -> None:
@@ -959,6 +959,14 @@ def check_world(arrays, cfg: RenderConfig) -> None:
         f"largest finite value is {F16_MAX:g}; this scene has a world "
         f"coordinate {'xyz'[axis]} = {value:g}: use record_dtype='f32' or "
         "'bf16'")
+
+
+def camera_arrays(camera: Camera, cfg: RenderConfig, device) -> dict:
+    """The camera's matrices as float32 tensors on ``device``, each copy
+    from the host spanned as ``sync.camera`` on a card."""
+    mats = camera.matrices(cfg.width / cfg.height)
+    return {k: telemetry.to_device("camera", v, device, _F)
+            for k, v in mats.items()}
 
 
 def _wants_stream(scene: Scene, cfg: RenderConfig) -> bool:
@@ -1018,9 +1026,7 @@ class RestirRenderer:
         self.profile = False
 
     def _camera_arrays(self) -> dict:
-        mats = self.camera.matrices(self.cfg.width / self.cfg.height)
-        return {k: torch.as_tensor(v, dtype=_F, device=self.device)
-                for k, v in mats.items()}
+        return camera_arrays(self.camera, self.cfg, self.device)
 
     def _state(self) -> dict:
         return dict(last_di=self.last_di, last_gi=self.last_gi,
@@ -1057,12 +1063,14 @@ class RestirRenderer:
             frame = self.frame
         t0 = time.perf_counter()
         pass_times: dict = {}
-        tick = (pass_timer([self.device], t0, pass_times) if self.profile
-                else None)
-        st, occ = _frame_body(self.scene_arrays, self._camera_arrays(), cfg,
-                              self._state(), frame, tick)
-        self._set_state(st)
-        ov = occ.double().cpu().numpy()   # waits for the frame
+        timer = (telemetry.PassTimer([self.device], pass_times)
+                 if self.profile else None)
+        with telemetry.frame(timer):
+            st, occ = _frame_body(self.scene_arrays, self._camera_arrays(),
+                                  cfg, self._state(), frame)
+            self._set_state(st)
+            with telemetry.span("sync.occupancy"):
+                ov = occ.double().cpu().numpy()   # waits for the frame
         dt = time.perf_counter() - t0
         self.frame += 1
         self.metrics = ray_metrics(cfg, ov, dt, self.frame)
@@ -1084,9 +1092,11 @@ class RestirRenderer:
         st = self._state()
         t0 = time.perf_counter()
         for i in range(int(k)):
-            st, _ = _frame_body(self.scene_arrays, cam, self.cfg, st,
-                                self.frame + i)
-        float(st["fb"].count[0])          # the one wait for the batch
+            with telemetry.frame():
+                st, _ = _frame_body(self.scene_arrays, cam, self.cfg, st,
+                                    self.frame + i)
+        with telemetry.span("sync.batch_end"):
+            float(st["fb"].count[0])      # the one wait for the batch
         dt = time.perf_counter() - t0
         self._set_state(st)
         self.frame += int(k)

@@ -27,7 +27,9 @@ random triangle soup of that many blocks, and then
                  distribution is printed per batch
        baseline  an earlier source with the same C interface and
                  two-column stats (for example the file of an earlier
-                 commit, written out with ``git show``), and two cut-down
+                 commit, written out with ``git show``; one whose
+                 interface ends at the stream ignores the counter pointer
+                 passed after it), and two cut-down
                  builds of it that split its time: ``baseline-nomt`` with
                  the Moller-Trumbore loop compiled out (staging, slab
                  tests and barriers remain; without hits no chunk exits
