@@ -7,8 +7,8 @@ Phases (any failure exits non-zero and prints no result line):
   1. device   name and power limit from nvidia-smi; build the kernels of
               royaltracer_dx_tpu_torch/csrc/ (stream_trace.cu,
               bvh_traverse.cu, cluster_traverse.cu, mxu_trace.cu,
-              brute_trace.cu: one nvcc a source, started together) and
-              print their resources
+              brute_trace.cu, tea_rng.cu: one nvcc a source, started
+              together) and print their resources
   2. kernels  each CUDA kernel against its plain PyTorch version on the
               same inputs on the card -- (a) the menger accel with 1M
               random rays, closest, and any-hit with half the lanes
@@ -21,11 +21,18 @@ Phases (any failure exits non-zero and prints no result line):
               and a worklist wider than the accel has blocks.
               Slots and occlusion must be equal (exact-t ties are
               counted), t/u/v and the three per-chunk stats bit-equal.
+              (d) the TEA draws kernel (csrc/tea_rng.cu) through
+              tea_random, tea_batch_at, tea_batch and tea_batch_major on
+              the main path's 2,073,600 lanes against the plain form run
+              on the card, draws and advanced seeds bit-equal, one launch
+              a call; each timed beside its byte bound and the plain
+              form.
   3. frames   RestirRenderer on the menger scene at 1920x1080 with the
               default RenderConfig: one warm-up frame and 4 timed frames,
               with the launch counters set to 0 just before and read just
               after (both stream kernels, no brute-force kernel: the
-              scattered batches hold 2,073,600 >= 2^20 rays); then one
+              scattered batches hold 2,073,600 >= 2^20 rays; the TEA
+              kernel the same number of times every frame); then one
               more frame whose kernel launches are timed
               with CUDA events, with each batch's work (visited blocks,
               hot clusters, candidate pairs, valid lanes) and bound
@@ -202,8 +209,11 @@ Phases (any failure exits non-zero and prints no result line):
               device time of the whole call: memset, list and main
               kernel) beside brute_work's bound and no-FMA floor and the
               stream, LBVH and MXU kernels on the same rays.
- 10. the {"kernels": [...]} line (eleven kernels), then
+ 10. the {"kernels": [...]} line (twelve kernels), then
  11. the {"ok": true, ...} line.
+
+Phases 4, 5 and 6 also fail unless the TEA kernel was launched in them:
+the ReSTIR, band, megakernel and DiOracle frames draw through it.
 
 --out DIR writes the rendered images there as PNGs (else the scenes
 phase writes its CLI outputs into a temporary directory).  --profile runs
@@ -485,6 +495,93 @@ def phase_kernels(dev, menger_arrays):
     return mismatches
 
 
+# the main path's lanes (one 1920x1080 frame's pixels), and seeds whose
+# counter-0 draw rounds to exactly 1.0 (tests/test_torch_cuda.py's
+# _TEA_ONES) in the last two
+TEA_LANES = 1920 * 1080
+TEA_ONES = [(0x5F68E92F, 0x99EF495C), (0xB4C21448, 0xE40E44B5)]
+TEA_SOURCE = "royaltracer_dx_tpu_torch/csrc/tea_rng.cu"
+
+
+def phase_tea(dev, rates, mismatches):
+    """The TEA draws kernel through each entry point on TEA_LANES random
+    seeds against the plain form run on the card (rng._takes_kernel
+    patched to False), draws and advanced seeds bit for bit, one launch a
+    call; each timed beside its byte bound (16 B read a lane, 4 B written
+    a draw, 16 B written a lane for an advanced seed) and the plain form:
+    device time by torch.profiler (20 calls; the plain form's kernels, 3
+    calls), and CUDA events around 20 calls, which also time the host's
+    issue of each.  Returns the cases."""
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+    from royaltracer_dx_tpu_torch.utils import rng
+
+    n_lanes = TEA_LANES
+    g = torch.Generator(device=dev).manual_seed(2**31 + 11)
+    seed = torch.randint(0, 2**32, (n_lanes, 2), generator=g,
+                         dtype=torch.int64, device=dev)
+    seed[-2:] = torch.tensor(TEA_ONES, dtype=torch.int64, device=dev)
+    cases = {
+        # name: (call, draws a lane, advances the seed)
+        "tea_batch_at(7)": (lambda: (rng.tea_batch_at(seed, 7), None), 1,
+                            False),
+        "tea_batch_at(2^31 - 1)": (
+            lambda: (rng.tea_batch_at(seed, 2**31 - 1), None), 1, False),
+        "tea_random": (lambda: rng.tea_random(seed), 1, True),
+        "tea_batch(3)": (lambda: rng.tea_batch(seed, 3), 3, True),
+        "tea_batch_major(3)": (lambda: rng.tea_batch_major(seed, 3), 3,
+                               True),
+        "tea_batch_major(30)": (lambda: rng.tea_batch_major(seed, 30), 30,
+                                True),
+    }
+    checks, out = [], {}
+    real = rng._takes_kernel
+    for name, (call, n, advance) in cases.items():
+        before = rng.LAUNCHES["tea"]
+        u, new = call()
+        torch.cuda.synchronize()
+        if rng.LAUNCHES["tea"] != before + 1:
+            fail(f"TEA {name}: {rng.LAUNCHES['tea'] - before} launches, "
+                 "expected one")
+        rng._takes_kernel = lambda _seed: False
+        try:
+            pu, pnew = call()
+            plain_ms = kernel_device_ms(call, "", reps=3)
+        finally:
+            rng._takes_kernel = real
+        if rng.LAUNCHES["tea"] != before + 1:
+            fail(f"TEA {name}: the plain form launched the kernel")
+        bad = int((u.view(torch.int32) != pu.view(torch.int32)).sum())
+        if advance:
+            bad += int((new != pnew).any(dim=-1).sum())
+        if bad or u.shape != pu.shape:
+            fail(f"TEA {name}: {bad} values differ from the plain form")
+        ones = int((u == 1.0).sum())
+        if name == "tea_random" and not bool((u[-2:] == 1.0).all()):
+            fail("TEA tea_random: the seeds whose draw rounds to 1.0 do not")
+        checks.append(dict(case=name, lanes=u.numel(), bad=bad,
+                           max_abs_err=0.0))
+        cuda_ms(call)                                       # warm
+        event_ms, _ = cuda_ms(call, reps=20)
+        ms = kernel_device_ms(call, "tea_draws_kernel", reps=20)
+        if ms is None or plain_ms is None:
+            fail(f"TEA {name}: the profiler recorded no device time")
+        work = dict(bytes=n_lanes * (16 + 4 * n + (16 if advance else 0)),
+                    fp32_ops=0)
+        bound = st.bound_ms(work, *rates)
+        out[name] = dict(ms=ms, event_ms=event_ms, plain_ms=plain_ms,
+                         lanes=n_lanes, draws=n, ones=ones, **bound,
+                         work=work)
+        print(f"  TEA {name}: {n_lanes} lanes x {n} draws, bit-equal to the "
+              f"plain form ({ones} draws of exactly 1.0); kernel "
+              f"{ms * 1e3:.1f} us device ({event_ms * 1e3:.1f} us a call by "
+              f"events), bound {bound['bound_ms'] * 1e3:.1f} us "
+              f"({work['bytes'] / 1e6:.1f} MB), at "
+              f"{bound['bound_ms'] / ms:.1%} of it; plain {plain_ms:.3f} ms "
+              "device", flush=True)
+    mismatches["tea_draws"] = checks
+    return out
+
+
 # ------------------------------ phase 3 ----------------------------------
 
 
@@ -506,24 +603,31 @@ def on_card(r) -> list:
 
 def phase_frames(renderer):
     from royaltracer_dx_tpu_torch.ops import stream_trace as st
+    from royaltracer_dx_tpu_torch.utils import rng
 
     frame_ms = []
     reset_launches()
-    prev = dict(st.LAUNCHES)
+    rng.LAUNCHES["tea"] = 0
+    prev = dict(st.LAUNCHES, **rng.LAUNCHES)
+    tea = []
     for i in range(5):
         ms, _ = cuda_ms(renderer.render)
         frame_ms.append(ms)
-        now = dict(st.LAUNCHES)
+        now = dict(st.LAUNCHES, **rng.LAUNCHES)
         grew = {k: now[k] - prev[k] for k in now}
         if not all(v > 0 for v in grew.values()):
-            fail(f"frame {i}: a stream kernel was not launched ({grew})")
+            fail(f"frame {i}: a stream or TEA kernel was not launched "
+                 f"({grew})")
+        tea.append(grew["tea"])
         prev = now
         print(f"  frame {i}{' (warm-up)' if i == 0 else ''}: {ms:.3f} ms, "
               f"launches {grew}", flush=True)
+    if len(set(tea)) != 1:
+        fail(f"the TEA kernel's launches differ between frames: {tea}")
     # 1080p scattered batches are >= 2^20 rays: the JAX package's rule
     # keeps them on the stream kernels
     read_launches("the 1080p menger frames", zero=tuple(BRUTE_KERNELS))
-    return frame_ms, dict(st.LAUNCHES)
+    return frame_ms, dict(st.LAUNCHES, **rng.LAUNCHES)
 
 
 def profile_frame(renderer):
@@ -2935,6 +3039,7 @@ def phase_mxu(rates, mismatches):
     Returns (results, kernel entries)."""
     from royaltracer_dx_tpu_torch.ops import mxu_trace as mx
     from royaltracer_dx_tpu_torch.tools.mxu_cases import MXU_CASES, mxu_case
+    from royaltracer_dx_tpu_torch.utils.cuda_build import nvcc
 
     from royaltracer_dx_tpu_torch.ops import stream_trace as st
 
@@ -2942,7 +3047,7 @@ def phase_mxu(rates, mismatches):
     out = {}
     # the built library's SASS must hold the tensor-core products
     sass = subprocess.run(
-        [os.path.join(os.path.dirname(st._nvcc()), "cuobjdump"), "-sass",
+        [os.path.join(os.path.dirname(nvcc()), "cuobjdump"), "-sass",
          mx.BUILD_INFO["path"]], capture_output=True, text=True, timeout=120,
         check=True).stdout
     hmma = sorted(set(re.findall(r"HMMA\.\S*TF32\S*", sass)))
@@ -3387,6 +3492,18 @@ def phase_brute(out_dir, rates, mismatches, band):
 # -------------------------------- main -----------------------------------
 
 
+def tea_launched(label, before):
+    """Fails unless the TEA kernel was launched since its count read
+    ``before``; returns the count now."""
+    from royaltracer_dx_tpu_torch.utils import rng
+
+    now = rng.LAUNCHES["tea"]
+    if now <= before:
+        fail(f"{label}: the TEA kernel was not launched")
+    print(f"  {label}: {now - before} TEA kernel launches", flush=True)
+    return now
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="",
@@ -3408,6 +3525,7 @@ def main() -> None:
     from royaltracer_dx_tpu_torch.ops import traverse as tv
     from royaltracer_dx_tpu_torch.render.restir_renderer import RestirRenderer
     from royaltracer_dx_tpu_torch.scene.procedural import menger_scene
+    from royaltracer_dx_tpu_torch.utils import rng
 
     if "jax" in sys.modules or any(m.startswith("royaltracer_dx_tpu.")
                                    for m in sys.modules):
@@ -3431,15 +3549,16 @@ def main() -> None:
           f"memory {hbm / 1e12:.2f} TB/s; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     # one nvcc per source, started together
-    with concurrent.futures.ThreadPoolExecutor(5) as pool:
+    with concurrent.futures.ThreadPoolExecutor(6) as pool:
         for fut in [pool.submit(st.build_kernels),
                     pool.submit(tv.build_kernels),
                     pool.submit(ct.build_kernels),
                     pool.submit(mx.build_kernels),
-                    pool.submit(bt.build_kernels)]:
+                    pool.submit(bt.build_kernels),
+                    pool.submit(rng.build_kernels)]:
             fut.result()
     for info in (st.BUILD_INFO, tv.BUILD_INFO, ct.BUILD_INFO,
-                 mx.BUILD_INFO, bt.BUILD_INFO):
+                 mx.BUILD_INFO, bt.BUILD_INFO, rng.BUILD_INFO):
         print(f"  built {os.path.relpath(info['path'], ROOT)} in "
               f"{info['seconds']:.1f} s ({' '.join(info['flags'])})",
               flush=True)
@@ -3483,6 +3602,7 @@ def main() -> None:
     # ---- phase 2: kernels against their plain versions
     print("phase 2: kernels vs plain versions", flush=True)
     mismatches = phase_kernels(dev, sa)
+    tea = phase_tea(dev, (peak_flops, hbm), mismatches)
 
     # ---- phase 3: frames (the counted main-path run)
     print(f"phase 3: {cfg.width}x{cfg.height} menger frames", flush=True)
@@ -3536,6 +3656,22 @@ def main() -> None:
             frame_launches=pk["frame_launches"],
             frame_batches=pk["batches"], mismatch=mismatches[name],
             resources=st.BUILD_INFO["resources"][name]))
+    at = tea["tea_batch_at(7)"]
+    tea_entry = dict(
+        name="tea_draws", route="cuda", source=TEA_SOURCE,
+        replaces="royaltracer_dx_tpu/utils/rng.py:42-143",
+        replaces_fn="tea_random / tea_batch / tea_batch_major / "
+                    "tea_batch_at (XLA-fused, no Pallas kernel)",
+        launches=launches["tea"], frame_launches=launches["tea"] // 5,
+        library_ms=None, shape_lanes=at["lanes"], ms=at["ms"],
+        plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
+        bound_by=at["bound_by"], cases=tea, max_abs_err=0.0,
+        mismatch=dict(cases_checked=len(mismatches["tea_draws"]),
+                      values_checked=sum(c["lanes"]
+                                         for c in mismatches["tea_draws"]),
+                      values_differ=0))
+    print(f"  tea_draws: {launches['tea'] // 5} launches a frame, "
+          f"{at['ms'] * 1e3:.1f} us a tea_batch_at", flush=True)
     agree = small_frames_agree()
     profile = device_profile(renderer, args.out) if args.profile else None
     del renderer, sa
@@ -3547,9 +3683,11 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         out_dir = args.out or tmp
         os.makedirs(out_dir, exist_ok=True)
+        tea_at = rng.LAUNCHES["tea"]
         scenes, by_kernel = phase_scenes(
             out_dir, (peak_flops, hbm), mismatches,
             args.out if args.profile else None)
+        tea_at = tea_launched("phase 4", tea_at)
         print(f"  scenes phase {time.perf_counter() - t0:.1f} s", flush=True)
 
         # ---- phase 5: the megakernel Renderer and the DiOracle
@@ -3559,6 +3697,7 @@ def main() -> None:
             out_dir, (peak_flops, hbm), mismatches,
             {k: by_kernel[k]["sponza"] for k in KERNELS},
             args.out if args.profile else None)
+        tea_at = tea_launched("phase 5", tea_at)
         print(f"  oracles phase {time.perf_counter() - t0:.1f} s", flush=True)
 
         # ---- phase 6: pixel-band sharding and the LBVH kernels
@@ -3566,6 +3705,7 @@ def main() -> None:
         t0 = time.perf_counter()
         kept = {}
         sharding = phase_sharding((peak_flops, hbm), out_dir, kept)
+        tea_launched("phase 6 (bands)", tea_at)
         lbvh, bvh_entries = phase_lbvh(
             out_dir, (peak_flops, hbm), mismatches,
             {k: v for k, v in scenes["terrain"]["rates"].items()})
@@ -3599,6 +3739,7 @@ def main() -> None:
     for e in entries:
         e["scenes"] = dict(by_kernel[e["name"]], **by_kernel_o[e["name"]])
         e["max_abs_err"] = max(c["max_abs_err"] for c in mismatches[e["name"]])
+    entries.append(tea_entry)
     for name in BVH_KERNELS:
         checks = mismatches[name]
         bvh_entries[name].update(

@@ -50,7 +50,8 @@ from royaltracer_dx_tpu_torch.ops.intersect import (
     as_planes3,
     closest_hit_brute,
 )
-from royaltracer_dx_tpu_torch.ops.stream_trace import MT_OPS, build_library
+from royaltracer_dx_tpu_torch.ops.stream_trace import MT_OPS
+from royaltracer_dx_tpu_torch.utils.cuda_build import build_library
 
 # the package build's plan constants (csrc/brute_trace.cu THREADS x RAYS,
 # MIN_SLICE, ITEMS_PER_CTA, FIRST_ROUND, ROUND_GROWTH): rays an item,
@@ -98,7 +99,7 @@ _RESOURCE_KINDS = ("brute_closest", "brute_any", "brute_list")
 
 
 def build_kernels():
-    """Build csrc/brute_trace.cu (stream_trace.build_library: nvcc for
+    """Build csrc/brute_trace.cu (cuda_build.build_library: nvcc for
     sm_90a, -fmad=false) and load it.  Called at the first launch;
     idempotent."""
     global _LIB

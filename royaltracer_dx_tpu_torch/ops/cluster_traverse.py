@@ -81,6 +81,7 @@ from royaltracer_dx_tpu_torch.ops.traverse import (
     _rays,
     pack_rays,
 )
+from royaltracer_dx_tpu_torch.utils.cuda_build import build_library
 
 _DET_EPS = 1e-12
 _BIG = 3.0e38
@@ -441,13 +442,11 @@ def _resources(vals) -> dict:
 
 
 def build_kernels():
-    """Build csrc/cluster_traverse.cu (stream_trace.build_library: nvcc
+    """Build csrc/cluster_traverse.cu (cuda_build.build_library: nvcc
     for sm_90a, -fmad=false) and load it.  Called at the first launch;
     idempotent."""
     global _LIB
     if _LIB is None:
-        from royaltracer_dx_tpu_torch.ops.stream_trace import build_library
-
         lib, info = build_library(_SRC, signatures=_SIGNATURES)
         res = {}
         for which, name in enumerate(LAUNCHES):

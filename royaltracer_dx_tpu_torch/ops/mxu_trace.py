@@ -50,6 +50,7 @@ import os
 import torch
 
 from royaltracer_dx_tpu_torch.ops.intersect import INF, Hit, as_planes3
+from royaltracer_dx_tpu_torch.utils.cuda_build import build_library
 
 _LANE = 128          # triangle-axis padding (mxu_trace.py:41)
 _RAY_CHUNK = 4096    # rays per plain-version step (bounds [R, Tp] temps)
@@ -366,13 +367,11 @@ COUNT_KEYS = ("pairs", "candidates", "accepted", "exact_rays",
 
 
 def build_kernels():
-    """Build csrc/mxu_trace.cu (stream_trace.build_library: nvcc for
+    """Build csrc/mxu_trace.cu (cuda_build.build_library: nvcc for
     sm_90a, -fmad=false) and load it.  Called at the first launch;
     idempotent."""
     global _LIB
     if _LIB is None:
-        from royaltracer_dx_tpu_torch.ops.stream_trace import build_library
-
         lib, info = build_library(_SRC, signatures=_SIGNATURES)
         res = {}
         for which, name in enumerate(LAUNCHES):

@@ -46,11 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
 import os
-import shutil
-import subprocess
-import time
 
 import numpy as np
 import torch
@@ -58,6 +54,7 @@ import torch
 from royaltracer_dx_tpu_torch.ops.bvh import morton_codes
 from royaltracer_dx_tpu_torch.ops.intersect import INF, Hit, as_planes3
 from royaltracer_dx_tpu_torch.utils import telemetry
+from royaltracer_dx_tpu_torch.utils.cuda_build import build_library
 
 G = 64                 # triangles per cluster
 S = 32                 # clusters per block (block = 2048 triangles)
@@ -609,11 +606,6 @@ def bound_ms(work: dict, peak_flops: float, hbm: float) -> dict:
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc",
                     "stream_trace.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
-                          "_build")
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v"]
 _LIB = None
 BUILD_INFO: dict = {}
 # the C interface of csrc/stream_trace.cu: ctypes argument types by name
@@ -622,51 +614,6 @@ STREAM_SIGNATURES = {
     name: [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int,
                                    ctypes.c_void_p, ctypes.c_void_p]
     for name in ("stream_closest", "stream_any")}
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
-                       "csrc/*.cu at first use on a CUDA machine")
-
-
-def build_library(src_path: str, extra=(), signatures=None):
-    """Compile one CUDA source with nvcc for sm_90a (the package's flags
-    plus ``extra``) into _build/, named after the source and keyed by the
-    hash of source and flags so that an edit rebuilds, and load it with
-    ctypes, binding ``signatures`` ({function: argtypes}, each returning
-    an int error code; the stream kernels' by default).  Returns (library,
-    info); info holds the path, the seconds the build took, nvcc's log and
-    the flags."""
-    flags = [*_NVCC_FLAGS, *extra]
-    with open(src_path, "rb") as f:
-        src = f.read()
-    key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    stem = os.path.splitext(os.path.basename(src_path))[0]
-    so = os.path.join(_BUILD_DIR, f"lib{stem}_{key}.so")
-    t0 = time.perf_counter()
-    log = ""
-    if not os.path.exists(so):
-        tmp = f"{so}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, src_path],
-                              capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {src_path}:\n{log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(so)
-    for name, argtypes in (signatures or STREAM_SIGNATURES).items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib, dict(path=so, seconds=time.perf_counter() - t0, log=log,
-                     flags=flags)
 
 
 def kernel_resources(lib) -> dict:
@@ -692,7 +639,7 @@ def build_kernels():
     launch; idempotent."""
     global _LIB
     if _LIB is None:
-        lib, info = build_library(_SRC)
+        lib, info = build_library(_SRC, signatures=STREAM_SIGNATURES)
         BUILD_INFO.update(info, resources=kernel_resources(lib))
         _LIB = lib
     return _LIB

@@ -45,6 +45,7 @@ import torch
 
 from royaltracer_dx_tpu_torch.ops.bvh import LBVH
 from royaltracer_dx_tpu_torch.ops.intersect import INF, Hit, as_planes3
+from royaltracer_dx_tpu_torch.utils.cuda_build import build_library
 
 _DESCEND_SUBSTEPS = 4
 _MAX_TOP = 256
@@ -408,13 +409,11 @@ _SIGNATURES = {
 
 
 def build_kernels():
-    """Build csrc/bvh_traverse.cu (stream_trace.build_library: nvcc for
+    """Build csrc/bvh_traverse.cu (cuda_build.build_library: nvcc for
     sm_90a, -fmad=false) and load it.  Called at the first launch;
     idempotent."""
     global _LIB
     if _LIB is None:
-        from royaltracer_dx_tpu_torch.ops.stream_trace import build_library
-
         lib, info = build_library(_SRC, signatures=_SIGNATURES)
         res = {}
         for name, occ in (("bvh_closest", 0), ("bvh_any", 1)):

@@ -50,6 +50,7 @@ import torch
 from royaltracer_dx_tpu_torch.ops import brute_trace as bt
 from royaltracer_dx_tpu_torch.ops import intersect as it
 from royaltracer_dx_tpu_torch.ops import stream_trace as st
+from royaltracer_dx_tpu_torch.utils.cuda_build import BUILD_DIR, build_library
 from royaltracer_dx_tpu_torch.ops.mxu_trace import prepare_rays
 
 SWEEP_TRIS = (32, 256, 1024, "menger")
@@ -114,11 +115,11 @@ def registers(info):
 
 
 def _copy_build(src, name, signatures):
-    os.makedirs(st._BUILD_DIR, exist_ok=True)
-    path = os.path.join(st._BUILD_DIR, name)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    path = os.path.join(BUILD_DIR, name)
     with open(path, "w") as f:
         f.write(src)
-    lib, info = st.build_library(path, signatures=signatures)
+    lib, info = build_library(path, signatures=signatures)
     return lib, info
 
 

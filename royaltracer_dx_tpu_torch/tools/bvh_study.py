@@ -48,6 +48,7 @@ import tempfile
 import torch
 
 from royaltracer_dx_tpu_torch.ops import stream_trace as st
+from royaltracer_dx_tpu_torch.utils.cuda_build import build_library
 from royaltracer_dx_tpu_torch.ops import traverse as tv
 from royaltracer_dx_tpu_torch.tools.stream_study import cut_source, timed
 
@@ -155,7 +156,7 @@ def main() -> None:
     for v in args.sets:
         cuts = [(re.compile(rf"(constexpr int {k} = )\d+;"), rf"\g<1>{val};")
                 for k, val in (kv.split("=") for kv in v.split())]
-        lib, info = st.build_library(
+        lib, info = build_library(
             cut_source(tv._SRC, "bvh_set_" + re.sub(r"\W", "_", v), cuts),
             signatures=tv._SIGNATURES)
         print(f"set {v}: " + "; ".join(
@@ -163,14 +164,14 @@ def main() -> None:
             if "registers" in ln or "spill" in ln), flush=True)
         builds.append((v, lib, False))
     if args.scan_only:
-        lib, _ = st.build_library(
+        lib, _ = build_library(
             cut_source(tv._SRC, "bvh_scan_only", _SCAN_ONLY),
             signatures=tv._SIGNATURES)
         timed_only.append(("scan-only", lib, False))
     base = []
     if args.baseline:
-        lib, _ = st.build_library(cut_source(args.baseline, "bvh_baseline",
-                                             []), signatures=_OLD_SIGNATURES)
+        lib, _ = build_library(cut_source(args.baseline, "bvh_baseline",
+                                          []), signatures=_OLD_SIGNATURES)
         base = [("baseline", lib, True)]
     order = base + builds + timed_only + builds[:1] + base
     labels = [b[0] for b in base + builds + timed_only]

@@ -66,6 +66,7 @@ import torch
 
 from royaltracer_dx_tpu_torch.ops import cluster_traverse as ct
 from royaltracer_dx_tpu_torch.ops import stream_trace as st
+from royaltracer_dx_tpu_torch.utils.cuda_build import build_library, nvcc
 from royaltracer_dx_tpu_torch.ops.traverse import pack_rays
 from royaltracer_dx_tpu_torch.scene.procedural import menger_sponge
 from royaltracer_dx_tpu_torch.tools.stream_study import cut_source, timed
@@ -503,7 +504,7 @@ def frame_batches():
 def sass_of(path: str, fn: str) -> str:
     """``cuobjdump -sass`` of the kernels of a built library whose name
     holds ``fn``."""
-    tool = os.path.join(os.path.dirname(st._nvcc()), "cuobjdump")
+    tool = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
     out = subprocess.run([tool, "-sass", path], capture_output=True,
                          text=True, check=True).stdout
     return "".join("Function : " + part for part in
@@ -616,15 +617,15 @@ def main() -> None:
     for v in args.sets:
         cuts = [(re.compile(rf"(constexpr int {k} = )\d+;"), rf"\g<1>{val};")
                 for k, val in (kv.split("=") for kv in v.split())]
-        lib, info = st.build_library(
+        lib, info = build_library(
             cut_source(ct._SRC, "cluster_set_" + re.sub(r"\W", "_", v),
                        cuts), signatures=ct._SIGNATURES)
         print(f"set {v}: " + "; ".join(
             ln.strip() for ln in info["log"].splitlines()
             if "registers" in ln or "spill" in ln), flush=True)
         builds.append((v, lib, False))
-    clock = (st.build_library(cut_source(ct._SRC, "cluster_clock", _CLOCK),
-                              signatures=ct._SIGNATURES)[0]
+    clock = (build_library(cut_source(ct._SRC, "cluster_clock", _CLOCK),
+                           signatures=ct._SIGNATURES)[0]
              if args.clock and "b" in args.phase else None)
     base = []
     if args.baseline:
@@ -633,12 +634,12 @@ def main() -> None:
         sigs = {k: v for k, v in (_OLD_SIGNATURES if old
                                   else ct._SIGNATURES).items()
                 if k != "cluster_mask_resources"}
-        lib, _ = st.build_library(cut_source(args.baseline,
-                                             "cluster_baseline", []),
-                                  signatures=sigs)
+        lib, _ = build_library(cut_source(args.baseline,
+                                          "cluster_baseline", []),
+                               signatures=sigs)
         base = [("baseline", lib, old)]
     for cut in args.cut:
-        builds.append((cut, st.build_library(
+        builds.append((cut, build_library(
             cut_source(ct._SRC, "cluster_cut_" + cut, _MASK_CUTS[cut]),
             signatures=ct._SIGNATURES)[0], False))
     order = base + builds + builds[::-1] + base

@@ -51,6 +51,7 @@ import torch
 
 from royaltracer_dx_tpu_torch.ops import mxu_trace as mx
 from royaltracer_dx_tpu_torch.ops import stream_trace as st
+from royaltracer_dx_tpu_torch.utils.cuda_build import BUILD_DIR, build_library
 from royaltracer_dx_tpu_torch.ops import traverse as tv
 from royaltracer_dx_tpu_torch.ops.bvh import build_lbvh
 
@@ -208,12 +209,12 @@ def set_build(v):
                             rf"\g<1>{val};", src)
         if hits != 1:
             raise SystemExit(f"--set {v}: no constexpr int {k}")
-    os.makedirs(st._BUILD_DIR, exist_ok=True)
-    path = os.path.join(st._BUILD_DIR,
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    path = os.path.join(BUILD_DIR,
                         "study_mxu_" + re.sub(r"\W", "_", v) + ".cu")
     with open(path, "w") as f:
         f.write(src)
-    lib, info = st.build_library(path, signatures=mx._SIGNATURES)
+    lib, info = build_library(path, signatures=mx._SIGNATURES)
     print(f"set {v}: registers {registers(info)}", flush=True)
     return lib
 
@@ -222,11 +223,11 @@ def baseline_build(path):
     """An earlier mxu_trace.cu, copied into the build directory, built."""
     with open(path) as f:
         src = f.read()
-    os.makedirs(st._BUILD_DIR, exist_ok=True)
-    copy = os.path.join(st._BUILD_DIR, "mxu_baseline.cu")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    copy = os.path.join(BUILD_DIR, "mxu_baseline.cu")
     with open(copy, "w") as f:
         f.write(src)
-    lib, info = st.build_library(copy, signatures=_BASE_SIGNATURES)
+    lib, info = build_library(copy, signatures=_BASE_SIGNATURES)
     print(f"baseline {path}: registers {registers(info)}", flush=True)
     return lib
 

@@ -58,6 +58,7 @@ import sys
 import torch
 
 from royaltracer_dx_tpu_torch.ops import stream_trace as st
+from royaltracer_dx_tpu_torch.utils.cuda_build import BUILD_DIR, build_library
 
 # textual cuts applied to the baseline source: (old, new) pairs
 _NOMT = [("for (int g = 0; g < G; ++g) {", "for (int g = 0; g < 0; ++g) {")]
@@ -106,8 +107,8 @@ def cut_source(src_path: str, tag: str, cuts) -> str:
         if (len(old.findall(src)) if is_re else src.count(old)) != 1:
             raise SystemExit(f"{src_path}: expected one {old!r}")
         src = old.sub(new, src) if is_re else src.replace(old, new)
-    os.makedirs(st._BUILD_DIR, exist_ok=True)
-    out = os.path.join(st._BUILD_DIR, f"study_{tag}.cu")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = os.path.join(BUILD_DIR, f"study_{tag}.cu")
     with open(out, "w") as f:
         f.write(src)
     return out
@@ -225,20 +226,23 @@ def main() -> None:
     for v in args.sets:
         cuts = [(re.compile(rf"(constexpr int {k} = )\d+;"), rf"\g<1>{val};")
                 for k, val in (kv.split("=") for kv in v.split())]
-        lib, _ = st.build_library(cut_source(
-            st._SRC, "set_" + re.sub(r"\W", "_", v), cuts))
+        lib, _ = build_library(cut_source(
+            st._SRC, "set_" + re.sub(r"\W", "_", v), cuts),
+            signatures=st.STREAM_SIGNATURES)
         print(f"set {v}: {st.kernel_resources(lib)}", flush=True)
         builds.append((v, lib, 3, True))
     for n in args.clock:
-        lib, _ = st.build_library(cut_source(
-            st._SRC, f"clock{n}", _CLOCK_ALWAYS + _CLOCK[n]))
+        lib, _ = build_library(cut_source(
+            st._SRC, f"clock{n}", _CLOCK_ALWAYS + _CLOCK[n]),
+            signatures=st.STREAM_SIGNATURES)
         builds.append((f"clock {n}", lib, 3, True))
     base = []
     if args.baseline:
         for tag, cuts, full in (("baseline", [], True),
                                 ("baseline-nomt", _NOMT, False),
                                 ("baseline-nostage", _NOSTAGE, True)):
-            lib, info = st.build_library(cut_source(args.baseline, tag, cuts))
+            lib, info = build_library(cut_source(args.baseline, tag, cuts),
+                                      signatures=st.STREAM_SIGNATURES)
             for line in info["log"].splitlines():
                 if "registers" in line:
                     print(f"{tag}: ptxas: {line.strip()}", flush=True)

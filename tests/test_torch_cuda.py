@@ -28,6 +28,7 @@ from royaltracer_dx_tpu_torch.scene import procedural as tproc
 from royaltracer_dx_tpu_torch.scene.procedural import menger_sponge
 from royaltracer_dx_tpu_torch.tools.brute_cases import BRUTE_CASES, brute_case
 from royaltracer_dx_tpu_torch.tools.mxu_cases import MXU_CASES, mxu_case
+from royaltracer_dx_tpu_torch.utils import rng as trng
 
 
 def _card():
@@ -1004,3 +1005,162 @@ def test_cuda_brute_launch_does_not_synchronise():
     torch.cuda.synchronize()
     assert tbt.LAUNCHES["brute_closest"] == before["brute_closest"] + 2
     assert tbt.LAUNCHES["brute_any"] == before["brute_any"] + 2
+
+
+# seeds whose counter-0 draw ends in v0 = 2^32 - 1 and 2^32 - 100, both
+# rounding to u == 1.0 in float32 (test_torch_rng_camera.py's _untea of
+# (0xFFFFFFFF, 12345) and (0xFFFFFF9C, 777))
+_TEA_ONES = [(0x5F68E92F, 0x99EF495C), (0xB4C21448, 0xE40E44B5)]
+
+
+def _tea_seeds(shape, dev):
+    """int64 [*shape, 2] uint32 words, the last two lanes _TEA_ONES."""
+    s = np.random.default_rng(sum(shape) + 7).integers(
+        0, 2**32, (*shape, 2), dtype=np.int64)
+    if s.size >= 4:
+        s.reshape(-1, 2)[-2:] = _TEA_ONES
+    return torch.as_tensor(s, device=dev)
+
+
+def _same(got, want):
+    assert got.device.type == "cuda" and got.shape == want.shape
+    assert got.dtype == want.dtype
+    assert torch.equal(_bits(got.cpu()), _bits(want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4099,), (37, 53), (3, 1031)])
+def test_cuda_tea_draws_match_plain(shape):
+    """The TEA kernel against the plain form on the CPU, bit for bit, for
+    every entry point: leading shapes [N], [H, W] and [M, N], n in {1, 2,
+    3, 18, 30}, counters up to 2^31 - 1 and beyond 2^32, draws that round
+    to exactly 1.0; one launch a call."""
+    dev = _card()
+    seed = _tea_seeds(shape, dev)
+    cpu = seed.cpu()
+    before = trng.LAUNCHES["tea"]
+    calls = 0
+    u, s = trng.tea_random(seed)
+    pu, ps = trng.tea_random(cpu)
+    _same(u, pu)
+    _same(s, ps)
+    assert bool((u.reshape(-1)[-2:] == 1.0).all())
+    calls += 1
+    for n in (1, 2, 3, 18, 30):
+        for fn in (trng.tea_batch, trng.tea_batch_major):
+            u, s = fn(seed, n)
+            pu, ps = fn(cpu, n)
+            _same(u, pu)
+            _same(s, ps)
+            calls += 1
+    for i in (0, 1, 2, 17, 29, 2**31 - 1, 2**32 + 7):
+        _same(trng.tea_batch_at(seed, i), trng.tea_batch_at(cpu, i))
+        calls += 1
+    u, s = trng.tea_randoms(seed, 3)
+    pu, ps = trng.tea_randoms(cpu, 3)
+    _same(u, pu)
+    _same(s, ps)
+    calls += 3
+    torch.cuda.synchronize()
+    assert trng.LAUNCHES["tea"] - before == calls
+
+
+@pytest.mark.gpu
+def test_cuda_tea_draws_edge_inputs():
+    """Empty batches launch nothing; n = 0 still advances the seed (one
+    launch); a strided and an 8-byte-offset seed give the contiguous
+    seed's bits; a seed that is not int64 [..., 2] raises."""
+    dev = _card()
+    before = trng.LAUNCHES["tea"]
+    for shape in ((0,), (5, 0)):
+        seed = _tea_seeds(shape, dev)
+        u, s = trng.tea_batch(seed, 3)
+        assert u.shape == (*shape, 3) and s.shape == (*shape, 2)
+        assert trng.tea_batch_at(seed, 4).shape == shape
+        u, s = trng.tea_random(seed)
+        assert u.shape == shape and s.shape == (*shape, 2)
+    assert trng.LAUNCHES["tea"] == before
+    seed = _tea_seeds((1000,), dev)
+    for fn in (trng.tea_batch, trng.tea_batch_major):
+        u, s = fn(seed, 0)
+        pu, ps = fn(seed.cpu(), 0)
+        _same(u, pu)
+        _same(s, ps)
+    assert trng.LAUNCHES["tea"] == before + 2
+    strided = torch.stack([seed[:, 0], seed[:, 1]], dim=0).t()
+    assert not strided.is_contiguous()
+    buf = torch.empty(2 * 1000 + 1, dtype=torch.int64, device=dev)
+    offset = buf[1:].view(1000, 2)
+    offset.copy_(seed)
+    assert offset.data_ptr() % 16 == 8
+    want_u, want_s = trng.tea_batch(seed.cpu(), 18)
+    for x in (strided, offset):
+        u, s = trng.tea_batch(x, 18)
+        _same(u, want_u)
+        _same(s, want_s)
+        _same(trng.tea_batch_at(x, 5), trng.tea_batch_at(seed.cpu(), 5))
+    for bad in (seed.to(torch.int32), seed[:, :1]):
+        with pytest.raises(ValueError):
+            trng.tea_random(bad)
+
+
+@pytest.mark.gpu
+def test_cuda_tea_draws_do_not_synchronise():
+    """No entry point waits for the device (set_sync_debug_mode raises on
+    a host synchronisation)."""
+    dev = _card()
+    seed = _tea_seeds((2048,), dev)
+    trng.tea_random(seed)                   # builds the library
+    torch.cuda.synchronize()
+    before = trng.LAUNCHES["tea"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trng.tea_random(seed)
+        trng.tea_batch(seed, 18)
+        trng.tea_batch_major(seed, 30)
+        trng.tea_batch_at(seed, 7)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert trng.LAUNCHES["tea"] == before + 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("levels", [2, 3])
+def test_cuda_frames_with_tea_kernel_match_plain(levels, monkeypatch):
+    """Two 256x144 menger frames, flat (level 2: 4,802 triangles) and
+    windowed (level 3: presorted stream traces, GI compaction), give the
+    same state bit for bit with the TEA kernel and with the plain form
+    run on the card in its place; each RNG call of a frame is one
+    launch, and every seed it hands the kernel is contiguous and 16-byte
+    aligned (no copy)."""
+    from royaltracer_dx_tpu_torch.config import RenderConfig
+    from royaltracer_dx_tpu_torch.render.restir_renderer import RestirRenderer
+    from royaltracer_dx_tpu_torch.scene.procedural import menger_scene
+
+    _card()
+    calls = []
+
+    def plain(seed):
+        calls.append((seed.dim(), seed.shape[0], seed.is_contiguous(),
+                      seed.data_ptr() % 16))
+        return False
+
+    states, launches = [], []
+    for patch in (False, True):
+        if patch:
+            monkeypatch.setattr(trng, "_takes_kernel", plain)
+        scene, camera = menger_scene(levels=levels)
+        r = RestirRenderer(scene, camera,
+                           RenderConfig(width=256, height=144))
+        before = trng.LAUNCHES["tea"]
+        r.render()
+        r.render()
+        torch.cuda.synchronize()
+        launches.append(trng.LAUNCHES["tea"] - before)
+        states.append(r.state_dict())
+    assert launches[1] == 0
+    assert launches[0] == len(calls) > 0
+    assert all(c[0] == 2 and c[1] > 0 and c[2] and c[3] == 0 for c in calls)
+    for k, v in states[1].items():
+        np.testing.assert_array_equal(states[0][k], v, err_msg=k)

@@ -6,6 +6,9 @@ matrices are host numpy in both packages and primary rays are the same
 float32 broadcasts, held within 1e-6.
 """
 
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -104,3 +107,31 @@ def test_camera_matrices_and_rays(kw):
     jo2 = jc.orbited(0.03, -0.01)
     to2 = tc.orbited(0.03, -0.01)
     np.testing.assert_allclose(to2.eye, jo2.eye, atol=1e-6)
+
+
+def test_kernel_constants_equal_the_plain_form():
+    """csrc/tea_rng.cu's DELTA, K0..K3 and counter words are the plain
+    form's, read from the source text."""
+    src = os.path.join(os.path.dirname(trng.__file__), os.pardir, "csrc",
+                       "tea_rng.cu")
+    with open(src) as f:
+        found = dict(re.findall(r"constexpr unsigned (\w+) = (0x[0-9A-F]+)u;",
+                                f.read()))
+    want = {k: getattr(trng, f"_{k}") for k in
+            ("DELTA", "K0", "K1", "K2", "K3", "CTR_X", "CTR_Y")}
+    assert {k: int(v, 16) for k, v in found.items()} == want
+
+
+def test_cpu_draws_launch_no_kernel():
+    """CPU tensors take the plain form: rng.LAUNCHES stays where it was
+    (at 0 in a process without a card)."""
+    before = dict(trng.LAUNCHES)
+    s = as_port(seeds(64))
+    trng.tea_random(s)
+    trng.tea_randoms(s, 2)
+    trng.tea_batch(s, 3)
+    trng.tea_batch_major(s, 3)
+    trng.tea_batch_at(s, 5)
+    assert trng.LAUNCHES == before
+    if not torch.cuda.is_available():
+        assert trng.LAUNCHES == {"tea": 0}
