@@ -402,11 +402,13 @@ class ShardedRestirRenderer:
     def update(self, camera=None) -> None:
         """Move the camera and/or refit every device's scene after
         ``Scene.set_transform`` (shard.py:345-349)."""
-        if camera is not None:
-            self.camera = camera
-        for d, sa in self._scenes.items():
-            self._scenes[d] = self.scene.flatten(self._materials[d], prev=sa)
-        rr.check_world(self.scene_arrays, self.cfg)
+        with telemetry.update():
+            if camera is not None:
+                self.camera = camera
+            for d, sa in self._scenes.items():
+                self._scenes[d] = self.scene.flatten(self._materials[d],
+                                                     prev=sa)
+            rr.check_world(self.scene_arrays, self.cfg)
 
     def render(self) -> None:
         """One progressive frame over all bands (shard.py:351-429)."""

@@ -27,6 +27,7 @@ from royaltracer_dx_tpu_torch.render.framebuffer import (
 )
 from royaltracer_dx_tpu_torch.render.restir_renderer import bake
 from royaltracer_dx_tpu_torch.scene.scene import Scene
+from royaltracer_dx_tpu_torch.utils import telemetry
 from royaltracer_dx_tpu_torch.utils.rng import pixel_seed, tea_random
 
 _F = torch.float32
@@ -85,11 +86,12 @@ class Renderer:
 
     def update(self, camera: Camera | None = None) -> None:
         """Move the camera and/or refit after ``Scene.set_transform``
-        (:121-126)."""
-        if camera is not None:
-            self.camera = camera
-        self.scene_arrays = self.scene.flatten(self.materials,
-                                               prev=self.scene_arrays)
+        (:121-126), spanned as ``update`` (utils/telemetry.py)."""
+        with telemetry.update():
+            if camera is not None:
+                self.camera = camera
+            self.scene_arrays = self.scene.flatten(self.materials,
+                                                   prev=self.scene_arrays)
 
     def _frame(self, cam: dict, frame: int, prev_view):
         """One frame on the device: (framebuffer, rays per sample pass)."""

@@ -43,6 +43,8 @@ Each frame is spanned (utils/telemetry.py) as ``frame``, its passes as
 ``pass1_di``, ``pass1_gi``, ``pass2_temporal`` (``pack_last`` inside it),
 ``pass3_spatial`` and ``accumulate``, and every host wait in it as
 ``sync.<site>``; profile mode's times are booked at the pass spans' exits.
+``update()`` is spanned as ``update`` outside any frame, its parts as
+``update.*`` (scene/scene.py ``flatten``).
 
 Pixel-band sharding (parallel/shard.py) runs the same passes on a band of
 rows: ``xs`` / ``ys`` are the band's GLOBAL pixel coordinates (seeds and
@@ -1036,12 +1038,14 @@ class RestirRenderer:
     def update(self, camera: Camera | None = None) -> None:
         """Refit the scene after ``Scene.set_transform`` (and optionally
         move the camera) (:1110-1113): the world bake and the stream
-        accel's refit run on the renderer's device."""
-        if camera is not None:
-            self.camera = camera
-        self.scene_arrays = self.scene.flatten(self.materials,
-                                               prev=self.scene_arrays)
-        check_world(self.scene_arrays, self.cfg)
+        accel's refit run on the renderer's device.  Spanned as
+        ``update`` (utils/telemetry.py), with its parts inside."""
+        with telemetry.update():
+            if camera is not None:
+                self.camera = camera
+            self.scene_arrays = self.scene.flatten(self.materials,
+                                                   prev=self.scene_arrays)
+            check_world(self.scene_arrays, self.cfg)
 
     def _set_state(self, st: dict) -> None:
         self.last_di = st["last_di"]

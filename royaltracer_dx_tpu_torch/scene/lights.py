@@ -1,6 +1,7 @@
 """Emissive-triangle collection and CDF (port of
 royaltracer_dx_tpu/scene/lights.py:19-95).  Host numpy, identical
-arithmetic; the table lands on ``device``."""
+arithmetic; the table lands on ``device`` (each copy to a card spanned as
+``sync.lights``)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ import numpy as np
 import torch
 
 from royaltracer_dx_tpu_torch.scene.types import LightTriangles
+from royaltracer_dx_tpu_torch.utils import telemetry
 
 
 def collect_emissive_triangles(meshes, instance_mesh, ke_table,
@@ -38,7 +40,7 @@ def collect_emissive_triangles(meshes, instance_mesh, ke_table,
         emission.append(ke[lit])
 
     def t(a, dtype=torch.float32):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+        return telemetry.to_device("lights", np.asarray(a), device, dtype)
 
     if not verts:
         # no lights: one degenerate entry keeps every shape static

@@ -8,11 +8,18 @@ cluster kernels (ops/restir.py).  With ``prev`` (the previous frame's
 arrays) ``flatten`` is the per-frame refit: the object-space arrays stay
 cached on the device, ``_world_bake`` re-bakes world space there, the LBVH
 and the stream accel refit with the build's order and the clusters are
-rebuilt, as in the JAX package, so no host work grows with the triangle
-count.
+rebuilt, as in the JAX package.  The light table is rebuilt on the host
+from every mesh's triangles (scene/lights.py), the one part of a refit
+whose host work grows with the triangle count.  A refit is spanned
+(utils/telemetry.py) as ``update.bake``, ``update.refit``,
+``update.lights`` and ``update.table``, its host copies and reads as
+``sync.transforms``, ``sync.lights`` and ``sync.world_bounds``, and counts
+the triangles re-baked and the stream slots re-laid.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -28,6 +35,7 @@ from royaltracer_dx_tpu_torch.scene.types import (
     SceneArrays,
     world_bounds,
 )
+from royaltracer_dx_tpu_torch.utils import telemetry
 
 DEFAULT_MATERIAL = obj_loader.DEFAULT_MATERIAL
 
@@ -159,41 +167,61 @@ class Scene:
         if materials is None:
             materials = self.build_materials(device=dev)
         obj_tv, obj_tn, tm, ti = self._object_static(dev)
-        xf = torch.as_tensor(np.stack(self.transforms), device=dev)
-        tri_verts, tri_normals = _world_bake(obj_tv, obj_tn, ti, xf)
-        bvh = None
-        if prev is not None and prev.bvh is not None:
-            bvh = refit_lbvh(prev.bvh, tri_verts)
-        elif build_bvh:
-            bvh = build_lbvh(tri_verts, leaf_size=bvh_leaf_size)
-        clusters = None
-        if prev is not None and prev.clusters is not None:
-            cluster_group = prev.clusters.group
-            build_clusters = True
-        if build_clusters:
-            clusters = cluster_traverse.build_clusters(tri_verts,
-                                                       group=cluster_group)
-        stream = None
-        if prev is not None and prev.stream is not None:
-            stream = refit_stream_accel(prev.stream, tri_verts)
-        elif build_stream or (dev.type == "cuda" and bvh is None
-                              and clusters is None):
-            stream = build_stream_accel(tri_verts, method=stream_method)
-        return SceneArrays(
-            tri_verts=tri_verts,
-            tri_normals=tri_normals,
-            tri_material=tm,
-            tri_instance=ti,
-            materials=materials,
-            lights=self.build_lights(device=dev),
-            object_to_world=xf,
-            prev_object_to_world=torch.as_tensor(
-                np.stack(self.prev_transforms), device=dev),
-            bounds=world_bounds(tri_verts),
-            bvh=bvh,
-            clusters=clusters,
-            stream=stream,
-        ).with_tri_table()
+        with _part(prev, "bake"):
+            xf = telemetry.to_device("transforms", np.stack(self.transforms),
+                                     dev)
+            prev_xf = telemetry.to_device(
+                "transforms", np.stack(self.prev_transforms), dev)
+            tri_verts, tri_normals = _world_bake(obj_tv, obj_tn, ti, xf)
+        with _part(prev, "refit"):
+            bvh = None
+            if prev is not None and prev.bvh is not None:
+                bvh = refit_lbvh(prev.bvh, tri_verts)
+            elif build_bvh:
+                bvh = build_lbvh(tri_verts, leaf_size=bvh_leaf_size)
+            clusters = None
+            if prev is not None and prev.clusters is not None:
+                cluster_group = prev.clusters.group
+                build_clusters = True
+            if build_clusters:
+                clusters = cluster_traverse.build_clusters(
+                    tri_verts, group=cluster_group)
+            stream = None
+            if prev is not None and prev.stream is not None:
+                stream = refit_stream_accel(prev.stream, tri_verts)
+            elif build_stream or (dev.type == "cuda" and bvh is None
+                                  and clusters is None):
+                stream = build_stream_accel(tri_verts, method=stream_method)
+        with _part(prev, "lights"):
+            lights = self.build_lights(device=dev)
+        with _part(prev, "table"):
+            arrays = SceneArrays(
+                tri_verts=tri_verts,
+                tri_normals=tri_normals,
+                tri_material=tm,
+                tri_instance=ti,
+                materials=materials,
+                lights=lights,
+                object_to_world=xf,
+                prev_object_to_world=prev_xf,
+                bounds=world_bounds(tri_verts),
+                bvh=bvh,
+                clusters=clusters,
+                stream=stream,
+            ).with_tri_table()
+        if prev is not None:
+            telemetry.count("triangles", tri_verts.shape[0])
+            telemetry.count("stream_slots", 0 if stream is None
+                            else stream.perm.shape[0])
+        return arrays
+
+
+def _part(prev, name: str):
+    """The ``update.<name>`` span of a refit (``prev`` given); none for a
+    first build."""
+    if prev is None:
+        return contextlib.nullcontext()
+    return telemetry.span("update." + name)
 
 
 def _world_bake(obj_tv, obj_tn, tri_instance, transforms):

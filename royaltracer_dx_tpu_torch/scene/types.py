@@ -12,6 +12,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from royaltracer_dx_tpu_torch.utils import telemetry
+
 
 @dataclasses.dataclass
 class Materials:
@@ -126,9 +128,11 @@ class SceneArrays:
 
 def world_bounds(tri_verts: torch.Tensor) -> tuple:
     """(min xyz, max xyz) of [T, 3, 3] triangles as host floats: one
-    device read."""
+    device read, spanned as ``sync.world_bounds``."""
     if tri_verts.shape[0] == 0:
         return ((0.0,) * 3, (0.0,) * 3)
     lo_hi = torch.stack([tri_verts.amin(dim=(0, 1)),
-                         tri_verts.amax(dim=(0, 1))]).cpu().tolist()
+                         tri_verts.amax(dim=(0, 1))])
+    with telemetry.span("sync.world_bounds"):
+        lo_hi = lo_hi.cpu().tolist()
     return tuple(lo_hi[0]), tuple(lo_hi[1])

@@ -15,19 +15,26 @@ The names: ``frame`` (``frame()``); the passes ``pass1_di``, ``pass1_gi``,
 (``trace()``), ``trace.prepare`` around the stream worklists and presort;
 ``sync.<site>`` around each call of a frame that makes the host wait for
 the device.  A span given a ``tick`` label books profile mode's pass time
-on exit (``PassTimer``).
+on exit (``PassTimer``).  ``update`` (``update()``) spans a renderer's
+scene update, outside any frame, with ``update.bake`` (the world bake),
+``update.refit`` (the stream refit, or the LBVH refit / cluster rebuild),
+``update.lights`` (the light table) and ``update.table`` (the world bounds
+and the triangle table) inside it (``Scene.flatten(prev=)``).
 
 Counters, in the same record: per trace batch its query, route and ray
 count (host integers the dispatch has); the stream kernels' walk stats
 (blocks visited, clusters tested, ray-cluster candidate pairs), summed on
 the tensors' device into an int64 [3] counter (``stream_counter``) that
 the kernel adds to with one atomicAdd a column from each chunk that
-walked, and the plain CPU version with a torch sum.  No host read.
+walked, and the plain CPU version with a torch sum.  No host read.  An
+update counts host integers by name (``count()``): the triangles re-baked
+and the stream slots re-laid.
 
-The record keeps the last ``KEEP_FRAMES`` frames, each marked with whether
-the profiler was on, and running totals of the batches traced outside any
-frame.  Only the readers, ``last_frame()`` and ``outside_frames()``, move
-device counters to the host, and only when called.
+The record keeps the last ``KEEP_FRAMES`` frames and, apart, the last
+``KEEP_FRAMES`` updates, each marked with whether the profiler was on,
+and running totals of the batches traced outside any frame.  Only the
+readers, ``last_frame()``, ``last_update()`` and ``outside_frames()``,
+move device counters to the host, and only when called.
 """
 
 from __future__ import annotations
@@ -70,13 +77,17 @@ class PassTimer:
 
 
 class _Frame:
-    __slots__ = ("profiled", "spans", "batches", "counters", "timer")
+    """The record of one frame or one update."""
+
+    __slots__ = ("profiled", "spans", "batches", "counters", "counts",
+                 "timer")
 
     def __init__(self, profiled: bool, timer):
         self.profiled = profiled
         self.spans = []          # (name, start ns, end ns)
         self.batches = []        # (query, route, rays)
         self.counters = {}       # device -> int64 [3] stream counter
+        self.counts = {}         # name -> host int (count())
         self.timer = timer
 
 
@@ -85,6 +96,7 @@ class Record:
 
     def __init__(self):
         self.frames = collections.deque(maxlen=KEEP_FRAMES)
+        self.updates = collections.deque(maxlen=KEEP_FRAMES)
         self.current = None
         self.outside_batches = {}     # "query.route" -> [batches, rays]
         self.outside_counters = {}    # device -> int64 [3]
@@ -150,10 +162,15 @@ class _Span:
 
 
 class _FrameSpan(_Span):
-    __slots__ = ("timer", "outer")
+    """A span that opens its own record (a frame's or an update's) and
+    keeps it in ``RECORD.<kept>`` on exit."""
 
-    def __init__(self, timer=None):
-        super().__init__("frame")
+    __slots__ = ("timer", "outer", "kept")
+
+    def __init__(self, name: str = "frame", kept: str = "frames",
+                 timer=None):
+        super().__init__(name)
+        self.kept = kept
         self.timer = timer
 
     def __enter__(self):
@@ -165,7 +182,7 @@ class _FrameSpan(_Span):
     def __exit__(self, *exc):
         fr = RECORD.current
         super().__exit__(*exc)
-        RECORD.frames.append(fr)
+        getattr(RECORD, self.kept).append(fr)
         RECORD.current = self.outer
         return False
 
@@ -180,7 +197,22 @@ def span(name: str, tick: str | None = None) -> _Span:
 def frame(timer: PassTimer | None = None) -> _FrameSpan:
     """The span of one rendered frame, ``rt.frame``: opens the frame's
     record, into which the spans and counters inside it go."""
-    return _FrameSpan(timer)
+    return _FrameSpan(timer=timer)
+
+
+def update() -> _FrameSpan:
+    """The span of one scene update (a renderer's ``update()``),
+    ``rt.update``: opens the update's record, into which the
+    ``update.*`` spans, the waits and the counts inside it go."""
+    return _FrameSpan("update", "updates")
+
+
+def count(name: str, n: int) -> None:
+    """Add the host integer ``n`` to the open record's count ``name``
+    (nothing outside a record)."""
+    fr = RECORD.current
+    if fr is not None:
+        fr.counts[name] = fr.counts.get(name, 0) + int(n)
 
 
 def trace(query: str, route: str, rays: int) -> _Span:
@@ -233,6 +265,18 @@ def last_frame(profiled: bool = False) -> dict | None:
             return dict(profiled=fr.profiled, spans=list(fr.spans),
                         batches=list(fr.batches),
                         stream=_stream_totals(fr.counters.values()))
+    return None
+
+
+def last_update(profiled: bool = False) -> dict | None:
+    """The newest recorded update made with the profiler on (or off):
+    dict(profiled, spans [(name, start ns, end ns)] in the order they
+    ended, counts {name: int}); None where the record holds no such
+    update."""
+    for up in reversed(RECORD.updates):
+        if up.profiled == profiled:
+            return dict(profiled=up.profiled, spans=list(up.spans),
+                        counts=dict(up.counts))
     return None
 
 

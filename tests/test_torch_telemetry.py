@@ -1,7 +1,8 @@
 """The port's telemetry (utils/telemetry.py): the spans of a frame, its
 passes, trace batches, worklists and host waits; the batch and stream
-counters; the record and its readers; and profile mode's pass times,
-booked at the pass spans' exits.
+counters; the record and its readers; profile mode's pass times,
+booked at the pass spans' exits; and on the card, a scene update's spans,
+waits and arrays.
 
 CPU tests on 32 x 32 Cornell frames (stream traversal: the flat stream
 route and brute force) on one torch thread.  The tests marked ``gpu``
@@ -26,7 +27,7 @@ from royaltracer_dx_tpu_torch.ops import restir
 from royaltracer_dx_tpu_torch.ops import stream_trace as tst
 from royaltracer_dx_tpu_torch.parallel import shard as tshard
 from royaltracer_dx_tpu_torch.render.restir_renderer import RestirRenderer
-from royaltracer_dx_tpu_torch.scene.procedural import cornell_box
+from royaltracer_dx_tpu_torch.scene.procedural import cornell_box, menger_scene
 from royaltracer_dx_tpu_torch.tools.brute_cases import grid_tris
 from royaltracer_dx_tpu_torch.utils import telemetry
 
@@ -334,3 +335,121 @@ def test_card_pair_counter_equals_the_kernels_stats(query):
                               accel.blk_tris.cpu(), accel.blk_boxes.cpu(),
                               query == "any")
     assert torch.equal(plain[2], stats.cpu())
+
+
+def _moving_renderer(device):
+    """A level-2 Menger sponge under its light (two instances) whose
+    sponge, instance 0, is then turned 3 degrees about the vertical axis:
+    the next update() refits it."""
+    scene, cam = menger_scene(2)
+    r = RestirRenderer(scene, cam, _cfg(), device=device)
+    th = np.radians(3.0)
+    m = np.eye(4, dtype=np.float32)
+    m[0, 0] = m[2, 2] = np.cos(th)
+    m[0, 2], m[2, 0] = np.sin(th), -np.sin(th)
+    scene.set_transform(0, m)
+    return r
+
+
+def _update_outputs(sa) -> dict:
+    out = {f: getattr(sa, f) for f in (
+        "tri_verts", "tri_normals", "tri_material", "tri_instance",
+        "tri_table", "object_to_world", "prev_object_to_world")}
+    out.update({"lights." + f: getattr(sa.lights, f) for f in (
+        "verts", "instance", "weight", "cdf", "emission", "total_weight")})
+    out.update({"stream." + f: getattr(sa.stream, f) for f in (
+        "blk_tris", "blk_boxes", "top_lo", "top_hi", "perm")})
+    return out
+
+
+@pytest.mark.gpu
+def test_card_update_is_bit_identical_with_the_telemetry_on_and_off(
+        tmp_path):
+    """update() under the profiler (every span a ``record_function``
+    range) and without it give the same arrays, bit for bit, and both
+    equal the update's parts composed as the flatten before its spans
+    composed them (the copies, ``_world_bake``, the stream refit, the
+    light table, the bounds, the triangle table); the ``rt.update.*``
+    ranges lie inside ``rt.update`` and kernels run inside it."""
+    from royaltracer_dx_tpu_torch.scene import scene as tscene
+    from royaltracer_dx_tpu_torch.scene.types import (
+        SceneArrays,
+        world_bounds,
+    )
+
+    dev = _card()
+    plain, traced = _moving_renderer(dev), _moving_renderer(dev)
+    first = plain.scene_arrays
+    plain.update()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced.update()
+        torch.cuda.synchronize()
+    path = tmp_path / "update.json"
+    prof.export_chrome_trace(str(path))
+    sc = plain.scene
+    xf = torch.as_tensor(np.stack(sc.transforms), device=dev)
+    obj_tv, obj_tn, tm, ti = sc._object_static(dev)
+    tv, tn = tscene._world_bake(obj_tv, obj_tn, ti, xf)
+    parts = SceneArrays(
+        tri_verts=tv, tri_normals=tn, tri_material=tm, tri_instance=ti,
+        materials=plain.materials, lights=sc.build_lights(device=dev),
+        object_to_world=xf,
+        prev_object_to_world=torch.as_tensor(np.stack(sc.prev_transforms),
+                                             device=dev),
+        bounds=world_bounds(tv),
+        stream=tst.refit_stream_accel(first.stream, tv)).with_tri_table()
+    a = _update_outputs(plain.scene_arrays)
+    b = _update_outputs(traced.scene_arrays)
+    c = _update_outputs(parts)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+        assert torch.equal(a[k], c[k]), k
+    assert plain.scene_arrays.bounds == parts.bounds
+    assert not torch.equal(a["tri_verts"], first.tri_verts)
+    trace = json.loads(path.read_text())
+    ranges = _ranges(trace)
+    outer = [r for r in ranges if r[2] == "rt.update"]
+    assert len(outer) == 1
+    assert {r[2] for r in ranges} == {
+        "rt.update", "rt.update.bake", "rt.update.refit",
+        "rt.update.lights", "rt.update.table", "rt.sync.transforms",
+        "rt.sync.lights", "rt.sync.world_bounds"}
+    assert all(_within(r, outer[0]) for r in ranges)
+    kernels = [e for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+    assert kernels
+    rec = telemetry.last_update(profiled=True)
+    assert rec["counts"] == dict(
+        triangles=sc.num_triangles,
+        stream_slots=plain.scene_arrays.stream.perm.shape[0])
+
+
+@pytest.mark.gpu
+def test_card_update_waits_only_inside_sync_spans():
+    """Under torch's sync debug mode every synchronising call of a card
+    update() warns inside one of its sync spans, and each sync span holds
+    one: the two transform copies, the light table's copies and the world
+    bounds' read."""
+    dev = _card()
+    r = _moving_renderer(dev)
+    torch.cuda.synchronize()
+    stamps = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = lambda *a, **k: stamps.append(time.time_ns())
+        torch.cuda.set_sync_debug_mode("warn")
+        stamps.clear()
+        try:
+            r.update()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    spans = telemetry.last_update()["spans"]
+    syncs = [(a, b) for n, a, b in spans if n.startswith("sync.")]
+    assert stamps and len(stamps) == len(syncs)
+    for t in stamps:
+        assert sum(a <= t <= b for a, b in syncs) == 1
+    names = [n for n, _, _ in spans if n.startswith("sync.")]
+    assert names.count("sync.transforms") == 2
+    assert names.count("sync.world_bounds") == 1
+    assert set(names) == {"sync.transforms", "sync.lights",
+                          "sync.world_bounds"}
