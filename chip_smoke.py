@@ -7,8 +7,8 @@ Phases (any failure exits non-zero and prints no result line):
   1. device   name and power limit from nvidia-smi; build the kernels of
               royaltracer_dx_tpu_torch/csrc/ (stream_trace.cu,
               bvh_traverse.cu, cluster_traverse.cu, mxu_trace.cu,
-              brute_trace.cu, tea_rng.cu: one nvcc a source, started
-              together) and print their resources
+              brute_trace.cu, tea_rng.cu, light_pick.cu: one nvcc a
+              source, started together) and print their resources
   2. kernels  each CUDA kernel against its plain PyTorch version on the
               same inputs on the card -- (a) the menger accel with 1M
               random rays, closest, and any-hit with half the lanes
@@ -26,13 +26,20 @@ Phases (any failure exits non-zero and prints no result line):
               the main path's 2,073,600 lanes against the plain form run
               on the card, draws and advanced seeds bit-equal, one launch
               a call; each timed beside its byte bound and the plain
-              form.
+              form.  (e) the light-pick kernel (csrc/light_pick.cu)
+              through select_light_records at 2 and 384 lights on
+              2,073,600 lanes and on a strided [4, 2,073,600] view,
+              against the plain form run on the card, 16 record planes
+              bit-equal, one launch a call (the plain form's kernels a
+              call counted); each timed beside its byte bound and the
+              plain form.
   3. frames   RestirRenderer on the menger scene at 1920x1080 with the
               default RenderConfig: one warm-up frame and 4 timed frames,
               with the launch counters set to 0 just before and read just
               after (both stream kernels, no brute-force kernel: the
               scattered batches hold 2,073,600 >= 2^20 rays; the TEA
-              kernel the same number of times every frame); then one
+              and light-pick kernels the same number of times every
+              frame); then one
               more frame whose kernel launches are timed
               with CUDA events, with each batch's work (visited blocks,
               hot clusters, candidate pairs, valid lanes) and bound
@@ -209,11 +216,12 @@ Phases (any failure exits non-zero and prints no result line):
               device time of the whole call: memset, list and main
               kernel) beside brute_work's bound and no-FMA floor and the
               stream, LBVH and MXU kernels on the same rays.
- 10. the {"kernels": [...]} line (twelve kernels), then
+ 10. the {"kernels": [...]} line (thirteen kernels), then
  11. the {"ok": true, ...} line.
 
-Phases 4, 5 and 6 also fail unless the TEA kernel was launched in them:
-the ReSTIR, band, megakernel and DiOracle frames draw through it.
+Phases 4, 5 and 6 also fail unless the TEA and light-pick kernels were
+launched in them: the ReSTIR, band, megakernel and DiOracle frames draw
+and pick lights through them.
 
 --out DIR writes the rendered images there as PNGs (else the scenes
 phase writes its CLI outputs into a temporary directory).  --profile runs
@@ -582,6 +590,118 @@ def phase_tea(dev, rates, mismatches):
     return out
 
 
+PICK_SOURCE = "royaltracer_dx_tpu_torch/csrc/light_pick.cu"
+
+
+def pick_case(n_lights, dev):
+    """A float32 [n_lights] CDF as scene/lights.py builds it (a normalised
+    cumulative sum, the last forced to 1; a fifth of the weights 0, so
+    values repeat) and a random float32 [n_lights, 16] record table."""
+    g = np.random.default_rng(n_lights)
+    w = g.uniform(0.1, 2.0, n_lights) * (g.uniform(0, 1, n_lights) > 0.2)
+    w[0] = 1.0
+    c = np.cumsum(w / w.sum()).astype(np.float32)
+    c[-1] = 1.0
+    table = g.normal(size=(n_lights, 16)).astype(np.float32)
+    return (torch.as_tensor(c, device=dev),
+            torch.as_tensor(table, device=dev))
+
+
+def kernels_a_call(fn) -> int:
+    """The device operations one call of ``fn`` runs (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def phase_light_pick(dev, rates, mismatches):
+    """The light-pick kernel through select_light_records at 2 lights (the
+    menger and dragon stages) and 384 (the atrium) on TEA_LANES uniform u
+    (0, 1, NaN and every CDF value among them) and on a candidate-major
+    strided [4, TEA_LANES] view (us[0::3] of a [12, TEA_LANES] batch, as
+    nee_candidates_p slices it), against the plain form run on the card
+    (light_sampling._takes_kernel patched to False), 16 planes bit for
+    bit, one launch a call; the device operations a call runs on each
+    path; the kernel's device time (torch.profiler, 20 calls) and CUDA
+    events around 20 calls beside its byte bound (4 B read and 64 B
+    written a lane), and the plain form's device time (3 calls).
+    Returns the cases."""
+    from royaltracer_dx_tpu_torch.ops import light_sampling as ls
+    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+
+    n_lanes = TEA_LANES
+    g = torch.Generator(device=dev).manual_seed(2**31 + 13)
+    checks, out = [], {}
+    real = ls._takes_kernel
+    for n_lights in (2, 384):
+        cdf, table = pick_case(n_lights, dev)
+        u = torch.rand(n_lanes, generator=g, device=dev)
+        u[:n_lights] = cdf
+        u[n_lights:n_lights + 3] = torch.tensor([0.0, 1.0, float("nan")],
+                                                device=dev)
+        us = torch.rand((12, n_lanes), generator=g, device=dev)
+        for label, x in (("[N]", u), ("us[0::3] of [12, N]", us[0::3])):
+            name = f"{n_lights} lights, {label}"
+
+            def call(x=x):
+                return ls.select_light_records(table, cdf, x)
+
+            before = ls.LAUNCHES["light_pick"]
+            got = call()
+            torch.cuda.synchronize()
+            if ls.LAUNCHES["light_pick"] != before + 1:
+                fail(f"light pick {name}: "
+                     f"{ls.LAUNCHES['light_pick'] - before} launches, "
+                     "expected one")
+            ls._takes_kernel = lambda _u: False
+            try:
+                want = call()
+                plain_ms = kernel_device_ms(call, "", reps=3)
+                plain_ops = kernels_a_call(call)
+            finally:
+                ls._takes_kernel = real
+            if ls.LAUNCHES["light_pick"] != before + 1:
+                fail(f"light pick {name}: the plain form launched the "
+                     "kernel")
+            bad = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                      for a, b in zip(got, want))
+            if bad or any(a.shape != b.shape or not a.is_contiguous()
+                          for a, b in zip(got, want)):
+                fail(f"light pick {name}: {bad} values differ from the "
+                     "plain form")
+            ops = kernels_a_call(call)
+            cuda_ms(call)                                   # warm
+            event_ms, _ = cuda_ms(call, reps=20)
+            ms = kernel_device_ms(call, "light_pick_kernel", reps=20)
+            if ms is None or plain_ms is None:
+                fail(f"light pick {name}: the profiler recorded no device "
+                     "time")
+            lanes = x.numel()
+            work = dict(bytes=lanes * (4 + 4 * ls.RECORD), fp32_ops=0)
+            bound = st.bound_ms(work, *rates)
+            checks.append(dict(case=name, lanes=lanes, bad=bad,
+                               max_abs_err=0.0))
+            out[name] = dict(ms=ms, event_ms=event_ms, plain_ms=plain_ms,
+                             lanes=lanes, lights=n_lights, ops=ops,
+                             plain_ops=plain_ops, **bound, work=work)
+            print(f"  light pick {name}: {lanes} lanes, 16 planes bit-equal "
+                  f"to the plain form; kernel {ms * 1e3:.1f} us device "
+                  f"({event_ms * 1e3:.1f} us a call by events), bound "
+                  f"{bound['bound_ms'] * 1e3:.1f} us "
+                  f"({work['bytes'] / 1e6:.1f} MB), at "
+                  f"{bound['bound_ms'] / ms:.1%} of it; {ops} device "
+                  f"operations a call; plain {plain_ms:.3f} ms device, "
+                  f"{plain_ops} operations a call", flush=True)
+    mismatches["light_pick"] = checks
+    return out
+
+
 # ------------------------------ phase 3 ----------------------------------
 
 
@@ -602,32 +722,35 @@ def on_card(r) -> list:
 
 
 def phase_frames(renderer):
+    from royaltracer_dx_tpu_torch.ops import light_sampling as ls
     from royaltracer_dx_tpu_torch.ops import stream_trace as st
     from royaltracer_dx_tpu_torch.utils import rng
 
     frame_ms = []
     reset_launches()
     rng.LAUNCHES["tea"] = 0
-    prev = dict(st.LAUNCHES, **rng.LAUNCHES)
-    tea = []
+    ls.LAUNCHES["light_pick"] = 0
+    prev = dict(st.LAUNCHES, **rng.LAUNCHES, **ls.LAUNCHES)
+    per_frame = []
     for i in range(5):
         ms, _ = cuda_ms(renderer.render)
         frame_ms.append(ms)
-        now = dict(st.LAUNCHES, **rng.LAUNCHES)
+        now = dict(st.LAUNCHES, **rng.LAUNCHES, **ls.LAUNCHES)
         grew = {k: now[k] - prev[k] for k in now}
         if not all(v > 0 for v in grew.values()):
-            fail(f"frame {i}: a stream or TEA kernel was not launched "
-                 f"({grew})")
-        tea.append(grew["tea"])
+            fail(f"frame {i}: a stream, TEA or light-pick kernel was not "
+                 f"launched ({grew})")
+        per_frame.append((grew["tea"], grew["light_pick"]))
         prev = now
         print(f"  frame {i}{' (warm-up)' if i == 0 else ''}: {ms:.3f} ms, "
               f"launches {grew}", flush=True)
-    if len(set(tea)) != 1:
-        fail(f"the TEA kernel's launches differ between frames: {tea}")
+    if len(set(per_frame)) != 1:
+        fail("the TEA and light-pick kernels' launches differ between "
+             f"frames: {per_frame}")
     # 1080p scattered batches are >= 2^20 rays: the JAX package's rule
     # keeps them on the stream kernels
     read_launches("the 1080p menger frames", zero=tuple(BRUTE_KERNELS))
-    return frame_ms, dict(st.LAUNCHES, **rng.LAUNCHES)
+    return frame_ms, dict(st.LAUNCHES, **rng.LAUNCHES, **ls.LAUNCHES)
 
 
 def profile_frame(renderer):
@@ -3492,15 +3615,25 @@ def phase_brute(out_dir, rates, mismatches, band):
 # -------------------------------- main -----------------------------------
 
 
-def tea_launched(label, before):
-    """Fails unless the TEA kernel was launched since its count read
-    ``before``; returns the count now."""
+def pass_launches() -> dict:
+    """The TEA and light-pick kernels' launch counts."""
+    from royaltracer_dx_tpu_torch.ops import light_sampling as ls
     from royaltracer_dx_tpu_torch.utils import rng
 
-    now = rng.LAUNCHES["tea"]
-    if now <= before:
-        fail(f"{label}: the TEA kernel was not launched")
-    print(f"  {label}: {now - before} TEA kernel launches", flush=True)
+    return dict(rng.LAUNCHES, **ls.LAUNCHES)
+
+
+def pass_kernels_launched(label, before):
+    """Fails unless the TEA and the light-pick kernels were each launched
+    since their counts read ``before`` (``pass_launches()``); returns the
+    counts now."""
+    now = pass_launches()
+    grew = {k: now[k] - before[k] for k in now}
+    if not all(v > 0 for v in grew.values()):
+        fail(f"{label}: the TEA or the light-pick kernel was not launched "
+             f"({grew})")
+    print(f"  {label}: {grew['tea']} TEA and {grew['light_pick']} light-pick "
+          "kernel launches", flush=True)
     return now
 
 
@@ -3520,6 +3653,7 @@ def main() -> None:
     from royaltracer_dx_tpu_torch.config import RenderConfig
     from royaltracer_dx_tpu_torch.ops import brute_trace as bt
     from royaltracer_dx_tpu_torch.ops import cluster_traverse as ct
+    from royaltracer_dx_tpu_torch.ops import light_sampling as ls
     from royaltracer_dx_tpu_torch.ops import mxu_trace as mx
     from royaltracer_dx_tpu_torch.ops import stream_trace as st
     from royaltracer_dx_tpu_torch.ops import traverse as tv
@@ -3549,16 +3683,18 @@ def main() -> None:
           f"memory {hbm / 1e12:.2f} TB/s; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     # one nvcc per source, started together
-    with concurrent.futures.ThreadPoolExecutor(6) as pool:
+    with concurrent.futures.ThreadPoolExecutor(7) as pool:
         for fut in [pool.submit(st.build_kernels),
                     pool.submit(tv.build_kernels),
                     pool.submit(ct.build_kernels),
                     pool.submit(mx.build_kernels),
                     pool.submit(bt.build_kernels),
-                    pool.submit(rng.build_kernels)]:
+                    pool.submit(rng.build_kernels),
+                    pool.submit(ls.build_kernels)]:
             fut.result()
     for info in (st.BUILD_INFO, tv.BUILD_INFO, ct.BUILD_INFO,
-                 mx.BUILD_INFO, bt.BUILD_INFO, rng.BUILD_INFO):
+                 mx.BUILD_INFO, bt.BUILD_INFO, rng.BUILD_INFO,
+                 ls.BUILD_INFO):
         print(f"  built {os.path.relpath(info['path'], ROOT)} in "
               f"{info['seconds']:.1f} s ({' '.join(info['flags'])})",
               flush=True)
@@ -3603,6 +3739,7 @@ def main() -> None:
     print("phase 2: kernels vs plain versions", flush=True)
     mismatches = phase_kernels(dev, sa)
     tea = phase_tea(dev, (peak_flops, hbm), mismatches)
+    pick = phase_light_pick(dev, (peak_flops, hbm), mismatches)
 
     # ---- phase 3: frames (the counted main-path run)
     print(f"phase 3: {cfg.width}x{cfg.height} menger frames", flush=True)
@@ -3672,6 +3809,23 @@ def main() -> None:
                       values_differ=0))
     print(f"  tea_draws: {launches['tea'] // 5} launches a frame, "
           f"{at['ms'] * 1e3:.1f} us a tea_batch_at", flush=True)
+    at = pick["384 lights, [N]"]
+    pick_entry = dict(
+        name="light_pick", route="cuda", source=PICK_SOURCE,
+        replaces="royaltracer_dx_tpu/ops/light_sampling.py:76-98",
+        replaces_fn="select_light_records (XLA-fused, no Pallas kernel)",
+        launches=launches["light_pick"],
+        frame_launches=launches["light_pick"] // 5, library_ms=None,
+        shape_lanes=at["lanes"], ms=at["ms"], plain_ms=at["plain_ms"],
+        bound_ms=at["bound_ms"], bound_by=at["bound_by"], cases=pick,
+        max_abs_err=0.0,
+        mismatch=dict(cases_checked=len(mismatches["light_pick"]),
+                      values_checked=16 * sum(
+                          c["lanes"] for c in mismatches["light_pick"]),
+                      values_differ=0))
+    print(f"  light_pick: {launches['light_pick'] // 5} launches a frame, "
+          f"{at['ms'] * 1e3:.1f} us a 2,073,600-lane pick of 384 lights",
+          flush=True)
     agree = small_frames_agree()
     profile = device_profile(renderer, args.out) if args.profile else None
     del renderer, sa
@@ -3683,11 +3837,11 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         out_dir = args.out or tmp
         os.makedirs(out_dir, exist_ok=True)
-        tea_at = rng.LAUNCHES["tea"]
+        pass_at = pass_launches()
         scenes, by_kernel = phase_scenes(
             out_dir, (peak_flops, hbm), mismatches,
             args.out if args.profile else None)
-        tea_at = tea_launched("phase 4", tea_at)
+        pass_at = pass_kernels_launched("phase 4", pass_at)
         print(f"  scenes phase {time.perf_counter() - t0:.1f} s", flush=True)
 
         # ---- phase 5: the megakernel Renderer and the DiOracle
@@ -3697,7 +3851,7 @@ def main() -> None:
             out_dir, (peak_flops, hbm), mismatches,
             {k: by_kernel[k]["sponza"] for k in KERNELS},
             args.out if args.profile else None)
-        tea_at = tea_launched("phase 5", tea_at)
+        pass_at = pass_kernels_launched("phase 5", pass_at)
         print(f"  oracles phase {time.perf_counter() - t0:.1f} s", flush=True)
 
         # ---- phase 6: pixel-band sharding and the LBVH kernels
@@ -3705,7 +3859,7 @@ def main() -> None:
         t0 = time.perf_counter()
         kept = {}
         sharding = phase_sharding((peak_flops, hbm), out_dir, kept)
-        tea_launched("phase 6 (bands)", tea_at)
+        pass_kernels_launched("phase 6 (bands)", pass_at)
         lbvh, bvh_entries = phase_lbvh(
             out_dir, (peak_flops, hbm), mismatches,
             {k: v for k, v in scenes["terrain"]["rates"].items()})
@@ -3740,6 +3894,7 @@ def main() -> None:
         e["scenes"] = dict(by_kernel[e["name"]], **by_kernel_o[e["name"]])
         e["max_abs_err"] = max(c["max_abs_err"] for c in mismatches[e["name"]])
     entries.append(tea_entry)
+    entries.append(pick_entry)
     for name in BVH_KERNELS:
         checks = mismatches[name]
         bvh_entries[name].update(

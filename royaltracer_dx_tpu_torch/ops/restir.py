@@ -449,10 +449,8 @@ def nee_candidate_at_p(scene, x1, normal, outgoing, mat, seed, i):
 def _nee_one(scene, x1, normal, outgoing, mat, u_sel, xi1, xi2):
     """Shared SampleLightNEE body (:823-870, Sampler_v6.hlsl:273-396,
     visibility off as in SampleRIS)."""
-    lights = scene.lights
-    rec = light_sampling.select_light_records(
-        light_sampling.light_tables(lights, scene.object_to_world),
-        lights.cdf, u_sel)
+    rec = light_sampling.select_light_records(scene.light_table,
+                                              scene.lights.cdf, u_sel)
     lv0, lv1, lv2 = (rec[0], rec[1], rec[2]), (rec[3], rec[4], rec[5]), \
         (rec[6], rec[7], rec[8])
     nl = (rec[9], rec[10], rec[11])

@@ -55,8 +55,6 @@ class DiOracle:
         self._outgoing = sdata["o"]
         self._l1 = sdata["l1"]
         self._xs, self._ys = rr._pixel_grid(cfg, dev)
-        self._cols = light_sampling.light_tables(sa.lights,
-                                                 sa.object_to_world)
         self._acc = torch.zeros((cfg.num_pixels, 3), dtype=torch.float64,
                                 device=dev)
         self.frame = 0
@@ -68,8 +66,8 @@ class DiOracle:
         x1, n1 = self._x1, self._n1
         seed = pixel_seed(self._xs, self._ys, 7, frame)
         us, seed = tea_batch_major(seed, 3)
-        rec = light_sampling.select_light_records(self._cols, sa.lights.cdf,
-                                                  us[0])
+        rec = light_sampling.select_light_records(sa.light_table,
+                                                  sa.lights.cdf, us[0])
         lv = [tuple(rec[0:3]), tuple(rec[3:6]), tuple(rec[6:9])]
         nl = tuple(rec[9:12])
         pdf = rec[12]

@@ -30,7 +30,6 @@ from royaltracer_dx_tpu_torch.ops import bsdf, restir
 from royaltracer_dx_tpu_torch.ops.intersect import interpolate_hit_p
 from royaltracer_dx_tpu_torch.ops.light_sampling import (
     fold_barycentric,
-    light_tables,
     select_light_records,
 )
 from royaltracer_dx_tpu_torch.utils import pvec as pv
@@ -71,9 +70,7 @@ def _ris_nee(scene, mat, pos, normal, flat, outgoing, strategy, seed,
     u_sel, xi1, xi2 = us[0::3], us[1::3], us[2::3]
 
     shade_origin = pv.add(pos, pv.scale(flat, _BIAS))
-    lights = scene.lights
-    rec = select_light_records(light_tables(lights, scene.object_to_world),
-                               lights.cdf, u_sel)
+    rec = select_light_records(scene.light_table, scene.lights.cdf, u_sel)
     lv0, lv1, lv2 = tuple(rec[0:3]), tuple(rec[3:6]), tuple(rec[6:9])
     nl = tuple(rec[9:12])
     pdf_l = rec[12]

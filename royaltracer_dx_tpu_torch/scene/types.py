@@ -8,6 +8,7 @@ the JAX package so the converters (convert.py) and tests map one to one.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -111,6 +112,18 @@ class SceneArrays:
                            self.tri_instance.to(torch.float32)], dim=1)
         return dataclasses.replace(
             self, tri_table=torch.cat([v9, n9, ids], dim=1))
+
+    @functools.cached_property
+    def light_table(self) -> torch.Tensor:
+        """The lights' packed float32 [L, 16] records under these arrays'
+        transforms (``ops.light_sampling.light_table``), built at the
+        first read and kept with these arrays.  A scene update bakes new
+        arrays (``Scene.flatten``) and ``dataclasses.replace`` makes new
+        ones, so a table never outlives the transforms it was built
+        from."""
+        from royaltracer_dx_tpu_torch.ops import light_sampling
+
+        return light_sampling.light_table(self.lights, self.object_to_world)
 
     @property
     def num_triangles(self) -> int:

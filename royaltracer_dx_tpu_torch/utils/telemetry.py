@@ -26,9 +26,10 @@ count (host integers the dispatch has); the stream kernels' walk stats
 (blocks visited, clusters tested, ray-cluster candidate pairs), summed on
 the tensors' device into an int64 [3] counter (``stream_counter``) that
 the kernel adds to with one atomicAdd a column from each chunk that
-walked, and the plain CPU version with a torch sum.  No host read.  An
-update counts host integers by name (``count()``): the triangles re-baked
-and the stream slots re-laid.
+walked, and the plain CPU version with a torch sum.  No host read.  A
+record counts host integers by name (``count()``): a frame its light
+picks (``light_pick.calls``) and their lanes (``light_pick.lanes``), an
+update the triangles re-baked and the stream slots re-laid.
 
 The record keeps the last ``KEEP_FRAMES`` frames and, apart, the last
 ``KEEP_FRAMES`` updates, each marked with whether the profiler was on,
@@ -259,12 +260,14 @@ def last_frame(profiled: bool = False) -> dict | None:
     """The newest recorded frame rendered with the profiler on (or off):
     dict(profiled, spans [(name, start ns, end ns)] in the order they
     ended, batches [(query, route, rays)], stream {blocks, clusters,
-    pairs}); None where the record holds no such frame."""
+    pairs}, counts {name: int}); None where the record holds no such
+    frame."""
     for fr in reversed(RECORD.frames):
         if fr.profiled == profiled:
             return dict(profiled=fr.profiled, spans=list(fr.spans),
                         batches=list(fr.batches),
-                        stream=_stream_totals(fr.counters.values()))
+                        stream=_stream_totals(fr.counters.values()),
+                        counts=dict(fr.counts))
     return None
 
 

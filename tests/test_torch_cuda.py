@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from royaltracer_dx_tpu_torch.ops import brute_trace as tbt
+from royaltracer_dx_tpu_torch.ops import light_sampling as tls
 from royaltracer_dx_tpu_torch.ops import cluster_traverse as tct
 from royaltracer_dx_tpu_torch.ops import mxu_trace as tmx
 from royaltracer_dx_tpu_torch.ops import stream_trace as tst
@@ -1162,5 +1163,186 @@ def test_cuda_frames_with_tea_kernel_match_plain(levels, monkeypatch):
     assert launches[1] == 0
     assert launches[0] == len(calls) > 0
     assert all(c[0] == 2 and c[1] > 0 and c[2] and c[3] == 0 for c in calls)
+    for k, v in states[1].items():
+        np.testing.assert_array_equal(states[0][k], v, err_msg=k)
+
+
+def _pick_cdf(l_count, kind, dev):
+    """A float32 [L] CDF: "sorted" as scene/lights.py builds it (a
+    normalised cumulative sum, the last forced to 1, a fifth of the
+    lights of weight 0, so values repeat), "unsorted" random values,
+    "nan" a sorted one with a NaN in it."""
+    g = np.random.default_rng(l_count + 17)
+    w = g.uniform(0.1, 2.0, l_count) * (g.uniform(0, 1, l_count) > 0.2)
+    w[0] = 1.0
+    c = np.cumsum(w / w.sum()).astype(np.float32)
+    c[-1] = 1.0
+    if kind == "unsorted":
+        c = g.uniform(0, 1, l_count).astype(np.float32)
+    elif kind == "nan" and l_count > 2:
+        c[l_count // 2] = np.nan
+    return torch.as_tensor(c, device=dev)
+
+
+def _pick_u(shape, cdf, dev):
+    """float32 u of ``shape``: uniform, its first lanes 0, -0, 1, NaN,
+    inf, every CDF value and both its float neighbours."""
+    g = torch.Generator(device=dev).manual_seed(int(np.prod(shape)) + 3)
+    u = torch.rand(shape, generator=g, device=dev)
+    flat = u.view(-1)
+    special = torch.cat([
+        torch.tensor([0.0, -0.0, 1.0, float("nan"), float("inf")],
+                     device=dev),
+        cdf, torch.nextafter(cdf, torch.zeros_like(cdf)),
+        torch.nextafter(cdf, torch.full_like(cdf, 2.0))])
+    k = min(flat.numel(), special.numel())
+    flat[:k] = special[:k]
+    return u
+
+
+def _pick_plain(table, cdf, u, monkeypatch):
+    """The plain form run on the card (``_takes_kernel`` patched)."""
+    with monkeypatch.context() as m:
+        m.setattr(tls, "_takes_kernel", lambda _u: False)
+        return tls.select_light_records(table, cdf, u)
+
+
+def _same_planes(got, want, shape):
+    assert len(got) == len(want) == tls.RECORD
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape == shape, k
+        assert a.is_contiguous(), k
+        assert torch.equal(_bits(a), _bits(b)), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l_count", [1, 2, 384, 5003])
+def test_cuda_light_pick_matches_plain(l_count, monkeypatch):
+    """The light-pick kernel against the plain form run on the card, bit
+    for bit, on the frame's 2,073,600 lanes (0, 1, NaN and every CDF value
+    among them), on a candidate-major strided [M, N] view (``us[0::3]``
+    of ``nee_candidates_p``) and on empty batches; one launch a call that
+    has lanes, 16 contiguous planes."""
+    dev = _card()
+    cdf = _pick_cdf(l_count, "sorted", dev)
+    table = torch.randn((l_count, tls.RECORD), device=dev)
+    before = tls.LAUNCHES["light_pick"]
+    u = _pick_u((1920 * 1080,), cdf, dev)
+    _same_planes(tls.select_light_records(table, cdf, u),
+                 _pick_plain(table, cdf, u, monkeypatch), u.shape)
+    us = _pick_u((3 * 4, 4099), cdf, dev)
+    view = us[0::3]
+    assert not view.is_contiguous()
+    _same_planes(tls.select_light_records(table, cdf, view),
+                 _pick_plain(table, cdf, view, monkeypatch), view.shape)
+    for shape in ((0,), (4, 0)):
+        e = torch.empty(shape, device=dev)
+        _same_planes(tls.select_light_records(table, cdf, e),
+                     _pick_plain(table, cdf, e, monkeypatch), e.shape)
+    torch.cuda.synchronize()
+    assert tls.LAUNCHES["light_pick"] - before == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["sorted", "unsorted", "nan"])
+@pytest.mark.parametrize("l_count", [3, 384, 4097, 4098, 9000])
+def test_cuda_light_pick_edge_cdfs(kind, l_count, monkeypatch):
+    """Repeated CDF values, a CDF out of order and one holding a NaN (the
+    kernel's count-every-value path), and CDFs one value over a staged
+    tile (4,097 lights: 4,096 values counted) and beyond: bit-equal to the
+    plain form on u at 0, 1, NaN, inf, each CDF value and its
+    neighbours; a transposed u (copied to fold) too."""
+    dev = _card()
+    cdf = _pick_cdf(l_count, kind, dev)
+    table = torch.randn((l_count, tls.RECORD), device=dev)
+    u = _pick_u((4 * l_count + 77,), cdf, dev)
+    _same_planes(tls.select_light_records(table, cdf, u),
+                 _pick_plain(table, cdf, u, monkeypatch), u.shape)
+    t = _pick_u((3, 5, 2 * l_count + 1), cdf, dev).transpose(0, 2)
+    assert tls._fold(t) is None
+    _same_planes(tls.select_light_records(table, cdf, t),
+                 _pick_plain(table, cdf, t, monkeypatch), t.shape)
+
+
+@pytest.mark.gpu
+def test_cuda_light_pick_checks_and_does_not_synchronise():
+    """No host wait in a pick (set_sync_debug_mode raises on one); a table
+    or CDF on another device, or of another dtype, raises."""
+    dev = _card()
+    cdf = _pick_cdf(384, "sorted", dev)
+    table = torch.randn((384, tls.RECORD), device=dev)
+    u = _pick_u((1 << 16,), cdf, dev)
+    tls.select_light_records(table, cdf, u)         # builds the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tls.select_light_records(table, cdf, u)
+        tls.select_light_records(table, cdf, u.view(256, 256)[::2])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for args in ((table.cpu(), cdf, u), (table, cdf.cpu(), u),
+                 (table.half(), cdf, u), (table, cdf, u.double())):
+        with pytest.raises(ValueError):
+            tls.select_light_records(*args)
+
+
+def _pick_frames(scene_fn, monkeypatch, animate=False):
+    """Two 256x144 frames of ``scene_fn()``'s scene (``animate``: instance
+    1 moved and ``update()`` between them), with the light-pick kernel
+    and with the plain form run on the card in its place: the states and
+    the kernel's launches of each run."""
+    from royaltracer_dx_tpu_torch.camera import Camera
+    from royaltracer_dx_tpu_torch.config import RenderConfig
+    from royaltracer_dx_tpu_torch.render.restir_renderer import RestirRenderer
+
+    states, launches = [], []
+    for patch in (False, True):
+        if patch:
+            monkeypatch.setattr(tls, "_takes_kernel", lambda _u: False)
+        scene, camera = scene_fn()
+        r = RestirRenderer(scene, camera or Camera(eye=(0.5, 0.5, 1.72),
+                                                   center=(0.5, 0.5, 0.0)),
+                           RenderConfig(width=256, height=144))
+        before = tls.LAUNCHES["light_pick"]
+        r.render()
+        if animate:
+            scene.set_transform(1, np.array(
+                [[1, 0, 0, 0.3], [0, 1, 0, 0.35], [0, 0, 1, 0.3],
+                 [0, 0, 0, 1]], np.float32)
+                @ np.diag([0.2, 0.2, 0.2, 1.0]).astype(np.float32))
+            r.update()
+        r.render()
+        torch.cuda.synchronize()
+        launches.append(tls.LAUNCHES["light_pick"] - before)
+        states.append(r.state_dict())
+    return states, launches
+
+
+def _two_cornells():
+    scene = tproc.cornell_box(emission=18.0)
+    scene.add_instance(0, np.diag([0.2, 0.2, 0.2, 1.0]).astype(np.float32))
+    return scene, None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["atrium", "animated"])
+def test_cuda_frames_with_light_pick_kernel_match_plain(case, monkeypatch):
+    """Two 256x144 frames give the same state bit for bit with the
+    light-pick kernel and with the plain form in its place: a hall of 192
+    lamps (384 emissive triangles, the atrium's count), and two Cornell
+    boxes, the lit inner one moved with ``update()`` between the frames
+    (the second frame picks from the new arrays' table).  16 launches a
+    frame (4 DI candidates, 4 a GI bounce x 3)."""
+    from royaltracer_dx_tpu_torch import cli
+
+    _card()
+    if case == "atrium":
+        states, launches = _pick_frames(
+            lambda: (tproc.many_lights(n_lights=192),
+                     cli.build_scene("many_lights")[1]), monkeypatch)
+    else:
+        states, launches = _pick_frames(_two_cornells, monkeypatch,
+                                        animate=True)
+    assert launches == [32, 0]
     for k, v in states[1].items():
         np.testing.assert_array_equal(states[0][k], v, err_msg=k)

@@ -159,7 +159,7 @@ def test_light_sampling_matches(scenes):
     u = np.random.default_rng(1).uniform(0, 1, (4, N)).astype(np.float32)
     ju, tu = both(u)
     assert_lanes(tuple(x.T for x in tls.select_light_records(
-        tt, ta.lights.cdf, tu)),
+        tls.light_table(ta.lights, ta.object_to_world), ta.lights.cdf, tu)),
         tuple(jnp.asarray(x).T for x in jls.select_light_records(
             jt, ja.lights.cdf, ju)))
     xi = np.random.default_rng(2).uniform(0, 1, (2, N)).astype(np.float32)
