@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out DIR] [--profile]
+    python3 chip_smoke.py [--out DIR]
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -25,24 +25,22 @@ Phases (any failure exits non-zero and prints no result line):
               tea_random, tea_batch_at, tea_batch and tea_batch_major on
               the main path's 2,073,600 lanes against the plain form run
               on the card, draws and advanced seeds bit-equal, one launch
-              a call; each timed beside its byte bound and the plain
-              form.  (e) the light-pick kernel (csrc/light_pick.cu)
+              a call; each timed beside the plain form.  (e) the
+              light-pick kernel (csrc/light_pick.cu)
               through select_light_records at 2 and 384 lights on
               2,073,600 lanes and on a strided [4, 2,073,600] view,
               against the plain form run on the card, 16 record planes
               bit-equal, one launch a call (the plain form's kernels a
-              call counted); each timed beside its byte bound and the
-              plain form.
+              call counted); each timed beside the plain form.
   3. frames   RestirRenderer on the menger scene at 1920x1080 with the
               default RenderConfig: one warm-up frame and 4 timed frames,
               with the launch counters set to 0 just before and read just
               after (both stream kernels, no brute-force kernel: the
               scattered batches hold 2,073,600 >= 2^20 rays; the TEA
               and light-pick kernels the same number of times every
-              frame); then one
-              more frame whose kernel launches are timed
-              with CUDA events, with each batch's work (visited blocks,
-              hot clusters, candidate pairs, valid lanes) and bound
+              frame); then one more frame whose kernel launches are
+              timed with CUDA events, with each batch's walk (visited
+              blocks, hot clusters, candidate pairs, valid lanes)
               printed.  Each kernel's output on the largest batch
               that frame gave it is held against its plain version on the
               same inputs, and both are timed there.  Last, two 96x54
@@ -122,12 +120,11 @@ Phases (any failure exits non-zero and prints no result line):
               bit-equal; for closest also the node, triangle and
               root-transition stats of one more launch with stats on that
               sample); then one more frame of each with every batch's
-              ms, bound, live share and walk (node and triangle tests a
-              lane, root-scan slab tests a live closest lane beside the
-              ones a scan needs, which the bound counts: the kernel's must
-              be at least as many), the stream
-              kernels timed on the megakernel's batches beside them, and
-              each kernel alone, its bound and its plain version on the
+              ms, live share and walk (node and triangle tests a lane,
+              root-scan slab tests a live closest lane beside the ones a
+              scan needs: the kernel's must be at least as many), the
+              stream kernels timed on the megakernel's batches beside
+              them, and each kernel alone and its plain version on the
               ReSTIR frame's largest batch, held against the plain
               version on two differently strided samples; (c) the
               terrain's LBVH (999,698 triangles): build time, closest and
@@ -140,18 +137,18 @@ Phases (any failure exits non-zero and prints no result line):
               1920x1080 camera rays and 2^20 random rays at the default
               128 rays a tile and 128 triangles a cluster, 100,003 random
               rays (the last tiles, padding included) and tiles of 96,
-              cluster_study.pack_case's adversarial tiles (every packing
+              cluster_cases.pack_case's adversarial tiles (every packing
               width of live rays from 0 to the tile, dead rays whose
               t_max decides the bound, a NaN t_max, tiles without a live
               ray that overlap boxes, exact-t ties between twin
               triangles) at tiles and clusters of 128 / 128, 96 / 100,
               128 / 1 and 1024 / 1024, cluster_mask alone on
-              cluster_study.mask_case's phase A tiles (every live count,
+              cluster_cases.mask_case's phase A tiles (every live count,
               dead rays of every kind, equal bounds, -0.0 entries, zero,
               tiny, huge and non-finite components, non-finite boxes) at
               tiles of 128, 96 and 1024 against 38, 2,073, 1 and 38
               boxes, and sponza's 2,073,600-lane primary batch (each
-              kernel timed on the whole batch beside its bound); mask,
+              kernel timed on the whole batch); mask,
               entry, t/u/v, triangle ids, occlusion, steps and tests
               bit-equal, and the card's cluster build equal to the CPU's;
               cluster_mask's resources at sponza's and menger's shapes;
@@ -160,10 +157,10 @@ Phases (any failure exits non-zero and prints no result line):
               traversal="cluster", one warm-up and 3 timed frames with
               every count set to 0 just before and read just after (each
               cluster kernel launched, no stream or LBVH kernel, no plain
-              version), then one frame with every launch timed beside its
-              bound, its no-FMA floor and the ms a step of the batch's
-              longest tile, and each kernel on its largest batch timed
-              and held against the plain version on 512 tiles; (c)
+              version), then one frame with every launch timed beside
+              the ms a step of the batch's longest tile, and each kernel
+              on its largest batch timed and held against the plain
+              version on 512 tiles; (c)
               bench.py's
               cornell_megakernel row (512x512) through cli.main
               --renderer megakernel --traversal cluster, and a 1920x1080
@@ -187,8 +184,7 @@ Phases (any failure exits non-zero and prints no result line):
               margin, and the kernels' resources; each kernel, the
               stream and LBVH kernels on the same rays and torch.matmul
               of the [4096, 10] @ [10, 4Tp] product alone (TF32 off)
-              timed on the whole batches beside the tensor-core and the
-              FP32-only bound (mxu_work), the three kernels' device time
+              timed on the whole batches, the three kernels' device time
               alone also from torch.profiler; (c) tools/mxu_cases.py's
               adversarial inputs, kernel against plain bit for bit; the
               TF32 HMMA instructions in the library's SASS; one
@@ -214,8 +210,8 @@ Phases (any failure exits non-zero and prints no result line):
               and held against brute_trace.slice_plan; (b) each kernel
               timed on those batches (CUDA events, and torch.profiler
               device time of the whole call: memset, list and main
-              kernel) beside brute_work's bound and no-FMA floor and the
-              stream, LBVH and MXU kernels on the same rays.
+              kernel) beside the stream, LBVH and MXU kernels on the same
+              rays.
  10. the {"kernels": [...]} line (thirteen kernels), then
  11. the {"ok": true, ...} line.
 
@@ -224,12 +220,10 @@ launched in them: the ReSTIR, band, megakernel and DiOracle frames draw
 and pick lights through them.
 
 --out DIR writes the rendered images there as PNGs (else the scenes
-phase writes its CLI outputs into a temporary directory).  --profile runs
-one more menger frame under torch.profiler and prints the device's busy
-time and its time by kernel name (with --out, also the gzipped Chrome
-trace), and one more sponza and dragon frame each in phase 4 and one
-more megakernel sponza frame in phase 5.  The
-script imports nothing of JAX: it runs the port alone.
+phase writes its CLI outputs into a temporary directory).  The checks and
+the kernels' times are this script's; a frame's device profile is the
+benchmark's (``python3 benchmark/run.py --workload <cell> ... --trace
+1``).  The script imports nothing of JAX: it runs the port alone.
 """
 
 from __future__ import annotations
@@ -256,16 +250,6 @@ KERNELS = {
     "stream_closest": "_make_kernel(occlusion=False) via closest_hit_stream",
     "stream_any": "_make_kernel(occlusion=True) via any_hit_stream",
 }
-# --profile: device time grouped by kernel-name substrings, first match
-PROFILE_KINDS = [
-    ("stream kernels", ("stream_kernel",)),
-    ("gathers and indexing", ("gather", "index", "Index")),
-    ("integer elementwise (TEA RNG, ids)", ("<long", "<int", "Bitwise",
-                                            "shift")),
-    ("copies, cat, fills", ("Copy", "copy", "Memcpy", "Memset", "fill")),
-    ("reductions", ("reduce",)),
-    ("sorts", ("sort", "Sort", "radix")),
-]
 
 
 def fail(msg: str) -> None:
@@ -511,16 +495,14 @@ TEA_ONES = [(0x5F68E92F, 0x99EF495C), (0xB4C21448, 0xE40E44B5)]
 TEA_SOURCE = "royaltracer_dx_tpu_torch/csrc/tea_rng.cu"
 
 
-def phase_tea(dev, rates, mismatches):
+def phase_tea(dev, mismatches):
     """The TEA draws kernel through each entry point on TEA_LANES random
     seeds against the plain form run on the card (rng._takes_kernel
     patched to False), draws and advanced seeds bit for bit, one launch a
-    call; each timed beside its byte bound (16 B read a lane, 4 B written
-    a draw, 16 B written a lane for an advanced seed) and the plain form:
-    device time by torch.profiler (20 calls; the plain form's kernels, 3
-    calls), and CUDA events around 20 calls, which also time the host's
-    issue of each.  Returns the cases."""
-    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+    call; each timed beside the plain form: device time by torch.profiler
+    (20 calls; the plain form's kernels, 3 calls), and CUDA events around
+    20 calls, which also time the host's issue of each.  Returns the
+    cases."""
     from royaltracer_dx_tpu_torch.utils import rng
 
     n_lanes = TEA_LANES
@@ -573,19 +555,12 @@ def phase_tea(dev, rates, mismatches):
         ms = kernel_device_ms(call, "tea_draws_kernel", reps=20)
         if ms is None or plain_ms is None:
             fail(f"TEA {name}: the profiler recorded no device time")
-        work = dict(bytes=n_lanes * (16 + 4 * n + (16 if advance else 0)),
-                    fp32_ops=0)
-        bound = st.bound_ms(work, *rates)
         out[name] = dict(ms=ms, event_ms=event_ms, plain_ms=plain_ms,
-                         lanes=n_lanes, draws=n, ones=ones, **bound,
-                         work=work)
+                         lanes=n_lanes, draws=n, ones=ones)
         print(f"  TEA {name}: {n_lanes} lanes x {n} draws, bit-equal to the "
               f"plain form ({ones} draws of exactly 1.0); kernel "
               f"{ms * 1e3:.1f} us device ({event_ms * 1e3:.1f} us a call by "
-              f"events), bound {bound['bound_ms'] * 1e3:.1f} us "
-              f"({work['bytes'] / 1e6:.1f} MB), at "
-              f"{bound['bound_ms'] / ms:.1%} of it; plain {plain_ms:.3f} ms "
-              "device", flush=True)
+              f"events); plain {plain_ms:.3f} ms device", flush=True)
     mismatches["tea_draws"] = checks
     return out
 
@@ -620,7 +595,7 @@ def kernels_a_call(fn) -> int:
     return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
 
 
-def phase_light_pick(dev, rates, mismatches):
+def phase_light_pick(dev, mismatches):
     """The light-pick kernel through select_light_records at 2 lights (the
     menger and dragon stages) and 384 (the atrium) on TEA_LANES uniform u
     (0, 1, NaN and every CDF value among them) and on a candidate-major
@@ -629,11 +604,9 @@ def phase_light_pick(dev, rates, mismatches):
     (light_sampling._takes_kernel patched to False), 16 planes bit for
     bit, one launch a call; the device operations a call runs on each
     path; the kernel's device time (torch.profiler, 20 calls) and CUDA
-    events around 20 calls beside its byte bound (4 B read and 64 B
-    written a lane), and the plain form's device time (3 calls).
+    events around 20 calls, and the plain form's device time (3 calls).
     Returns the cases."""
     from royaltracer_dx_tpu_torch.ops import light_sampling as ls
-    from royaltracer_dx_tpu_torch.ops import stream_trace as st
 
     n_lanes = TEA_LANES
     g = torch.Generator(device=dev).manual_seed(2**31 + 13)
@@ -683,19 +656,14 @@ def phase_light_pick(dev, rates, mismatches):
                 fail(f"light pick {name}: the profiler recorded no device "
                      "time")
             lanes = x.numel()
-            work = dict(bytes=lanes * (4 + 4 * ls.RECORD), fp32_ops=0)
-            bound = st.bound_ms(work, *rates)
             checks.append(dict(case=name, lanes=lanes, bad=bad,
                                max_abs_err=0.0))
             out[name] = dict(ms=ms, event_ms=event_ms, plain_ms=plain_ms,
                              lanes=lanes, lights=n_lights, ops=ops,
-                             plain_ops=plain_ops, **bound, work=work)
+                             plain_ops=plain_ops)
             print(f"  light pick {name}: {lanes} lanes, 16 planes bit-equal "
                   f"to the plain form; kernel {ms * 1e3:.1f} us device "
-                  f"({event_ms * 1e3:.1f} us a call by events), bound "
-                  f"{bound['bound_ms'] * 1e3:.1f} us "
-                  f"({work['bytes'] / 1e6:.1f} MB), at "
-                  f"{bound['bound_ms'] / ms:.1%} of it; {ops} device "
+                  f"({event_ms * 1e3:.1f} us a call by events); {ops} device "
                   f"operations a call; plain {plain_ms:.3f} ms device, "
                   f"{plain_ops} operations a call", flush=True)
     mismatches["light_pick"] = checks
@@ -753,6 +721,18 @@ def phase_frames(renderer):
     return frame_ms, dict(st.LAUNCHES, **rng.LAUNCHES, **ls.LAUNCHES)
 
 
+def stream_walk(rows, cnt, stats) -> dict:
+    """What one stream kernel call walked, from its per-chunk stats:
+    blocks visited, hot clusters and candidate pairs summed over the
+    chunks, beside the chunks, those with a non-empty worklist and the
+    valid lanes."""
+    return dict(chunks=int(cnt.shape[0]), live_chunks=int((cnt > 0).sum()),
+                valid_lanes=int((rows[:, 8] > 0.5).sum()),
+                blocks_visited=int(stats[:, 0].sum()),
+                clusters_tested=int(stats[:, 1].sum()),
+                pairs=int(stats[:, 2].sum()))
+
+
 def profile_frame(renderer):
     """One more frame with every kernel launch timed by CUDA events; keeps
     each kernel's largest batch for the timing of kernel and plain."""
@@ -786,15 +766,12 @@ def profile_frame(renderer):
         start.record()
         out = real_launch(name, rows, wl, went, cnt, blk_tris, blk_boxes)
         end.record()
-        work = st.stream_work(rows, wl, went, cnt, blk_tris, blk_boxes,
-                              out[2])
-        live = cnt > 0
-        work.update(
-            chunks=int(cnt.shape[0]), live_chunks=int(live.sum()),
+        walk = dict(
+            stream_walk(rows, cnt, out[2]),
             live_lanes=int(((rows[:, 8] > 0.5)
                             & (rows[:, 7] > rows[:, 6])).sum()),
             nan_tmin_lanes=int(torch.isnan(rows[:, 6]).sum()))
-        events.append((name, rows.shape[0], start, end, work))
+        events.append((name, rows.shape[0], start, end, walk))
         if rows.shape[0] > largest.get(name, (0,))[0]:
             largest[name] = (rows.shape[0], (rows, wl, went, cnt, blk_tris,
                                              blk_boxes), out)
@@ -809,29 +786,23 @@ def profile_frame(renderer):
         st.prepare_stream = real_prepare
     per_kernel = {k: dict(frame_ms=0.0, frame_launches=0, batches=[])
                   for k in KERNELS}
-    for name, lanes, start, end, work in events:
+    for name, lanes, start, end, walk in events:
         pk = per_kernel[name]
         pk["frame_ms"] += start.elapsed_time(end)
         pk["frame_launches"] += 1
-        pk["batches"].append(dict(work, lanes=lanes,
+        pk["batches"].append(dict(walk, lanes=lanes,
                                   ms=start.elapsed_time(end)))
     per_kernel["prepare_stream"] = prepares
     return ms, per_kernel, largest
 
 
-def print_batches(batches, rates) -> float:
-    """One line per launch of a frame: time, bound and the walk per live
-    chunk.  Returns the frame's summed bound."""
-    from royaltracer_dx_tpu_torch.ops import stream_trace as st
-
-    frame_bound = 0.0
+def print_batches(batches) -> None:
+    """One line per launch of a frame: its time and the walk per live
+    chunk."""
     for b in batches:
-        b.update(st.bound_ms(b, *rates))
-        frame_bound += b["bound_ms"]
         live = max(b["live_chunks"], 1)
-        print(f"    batch {b['lanes']} lanes: {b['ms']:.3f} ms, bound "
-              f"{b['bound_ms']:.3f} ms ({b['bound_by']}); chunks with an "
-              f"empty worklist {1.0 - b['live_chunks'] / b['chunks']:.4f}"
+        print(f"    batch {b['lanes']} lanes: {b['ms']:.3f} ms; chunks with "
+              f"an empty worklist {1.0 - b['live_chunks'] / b['chunks']:.4f}"
               f"; per live chunk: blocks visited "
               f"{b['blocks_visited'] / live:.3f}, hot clusters "
               f"{b['clusters_tested'] / live:.3f}, candidate pairs "
@@ -839,7 +810,6 @@ def print_batches(batches, rates) -> float:
               f"{b['valid_lanes'] / b['lanes']:.4f}, live lanes "
               f"{b['live_lanes'] / b['lanes']:.4f}, NaN t_min lanes "
               f"{b['nan_tmin_lanes']}", flush=True)
-    return frame_bound
 
 
 def small_frames_agree(devices=("cuda", "cpu"), size=(96, 54), frames=2,
@@ -882,72 +852,6 @@ def small_frames_agree(devices=("cuda", "cpu"), size=(96, 54), frames=2,
     return share, dev_mean
 
 
-def device_profile(renderer, out_dir, tag="frame_trace"):
-    """One more frame under torch.profiler: the device's busy time (the
-    union of its kernel and copy intervals), the frame's host wall time,
-    and the device time by kernel name.  The profiler's own host cost
-    lengthens the wall time, so the idle share it gives is an upper
-    bound.  Writes the gzipped Chrome trace into ``out_dir`` if given."""
-    import gzip
-    import shutil
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        renderer.render()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_ev = sorted(((e.time_range.start, e.time_range.end, e.name)
-                     for e in prof.events()
-                     if e.device_type == DeviceType.CUDA),
-                    key=lambda x: x[0])
-    if not dev_ev:
-        print("  profiled frame: the profiler recorded no device events; "
-              "device busy share not measured", flush=True)
-        return None
-    busy_us, cur_s, cur_e = 0.0, dev_ev[0][0], dev_ev[0][1]
-    by_name: dict = {}
-    for s, e, name in dev_ev:
-        by_name.setdefault(name, [0.0, 0])
-        by_name[name][0] += (e - s) / 1e3
-        by_name[name][1] += 1
-        if s > cur_e:
-            busy_us += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy_us += cur_e - cur_s
-    busy_ms = busy_us / 1e3
-    print(f"  profiled frame (torch.profiler): host wall {wall_ms:.3f} ms, "
-          f"device busy {busy_ms:.3f} ms, idle share "
-          f"{1.0 - busy_ms / wall_ms:.4f}, {len(dev_ev)} device events",
-          flush=True)
-    by_kind: dict = {}
-    for name, (ms, n) in by_name.items():
-        kind = next((k for k, keys in PROFILE_KINDS if any(
-            key in name for key in keys)), "float elementwise and other")
-        by_kind.setdefault(kind, [0.0, 0])
-        by_kind[kind][0] += ms
-        by_kind[kind][1] += n
-    for kind, (ms, n) in sorted(by_kind.items(), key=lambda kv: -kv[1][0]):
-        print(f"    {ms:10.3f} ms {n:6d}x  {kind}", flush=True)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    for name, (ms, n) in top[:20]:
-        print(f"    {ms:10.3f} ms {n:6d}x  {name[:110]}", flush=True)
-    if out_dir:
-        raw = os.path.join(out_dir, f"{tag}.json")
-        prof.export_chrome_trace(raw)
-        with open(raw, "rb") as src, gzip.open(raw + ".gz", "wb") as dst:
-            shutil.copyfileobj(src, dst)
-        os.remove(raw)
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms, events=len(dev_ev),
-                kinds={k: v[0] for k, v in by_kind.items()})
-
-
 # ------------------------------ phase 4 ----------------------------------
 
 
@@ -969,10 +873,11 @@ def read_launches(label, want=tuple(KERNELS), zero=()):
     return counts
 
 
-def kernel_vs_plain(label, name, call, out, rates, mismatches):
+def kernel_vs_plain(label, name, call, out, mismatches):
     """One kernel's output on a batch against its plain version on the
-    same inputs (bit-equal, as in phase 3), and the times of both and the
-    bound.  Returns the entry of the kernels line for this scene."""
+    same inputs (bit-equal, as in phase 3), the times of both and the
+    kernel's walk.  Returns the entry of the kernels line for this
+    scene."""
     from royaltracer_dx_tpu_torch.ops import stream_trace as st
 
     occ = name == "stream_any"
@@ -982,32 +887,21 @@ def kernel_vs_plain(label, name, call, out, rates, mismatches):
     mismatches[name].append(dict(mm, case=label))
     cuda_ms(lambda: kern(*call))                           # warm
     ms, _ = cuda_ms(lambda: kern(*call), reps=5)
-    work = st.stream_work(*call, out[2])
-    work["blocks_per_live_chunk"] = (work["blocks_visited"]
-                                     / max(int((call[3] > 0).sum()), 1))
-    bound = st.bound_ms(work, *rates)
+    walk = stream_walk(call[0], call[3], out[2])
+    walk["blocks_per_live_chunk"] = (walk["blocks_visited"]
+                                     / max(walk["live_chunks"], 1))
     print(f"  {label} {name}: largest batch {mm['lanes']} lanes, equal to "
           f"the plain version ({mm['ties']} exact-t ties); kernel {ms:.3f} "
-          f"ms, plain {plain_ms:.3f} ms, bound {bound['bound_ms']:.3f} ms "
-          f"({bound['bound_by']}: bytes {bound['bytes_ms']:.3f} ms, "
-          f"operations {bound['ops_ms']:.3f} ms), nofma floor "
-          f"{bound['nofma_floor_ms']:.3f} ms; {work}", flush=True)
+          f"ms, plain {plain_ms:.3f} ms; {walk}", flush=True)
     return dict(lanes=mm["lanes"], ms=ms, plain_ms=plain_ms,
-                max_abs_err=mm["max_abs_err"], **bound, work=work)
+                max_abs_err=mm["max_abs_err"], walk=walk)
 
 
-def scene_frame(label, renderer, rates, mismatches, profile_dir=None,
-                batches=False):
+def scene_frame(label, renderer, mismatches, batches=False):
     """One more frame of ``renderer`` with timed launches and timed
     prepare_stream calls; each kernel against its plain version on that
-    frame's largest batch.  With ``profile_dir`` (None: no profile; "":
-    no trace file) first one frame under torch.profiler; with ``batches``
-    one line per launch.  Returns (per-kernel entries, frame info,
-    largest calls)."""
-    profile = None
-    if profile_dir is not None:
-        print(f"  {label} profiled frame:", flush=True)
-        profile = device_profile(renderer, profile_dir, f"{label}_trace")
+    frame's largest batch.  With ``batches`` one line per launch.
+    Returns (per-kernel entries, frame info, largest calls)."""
     prof_ms, per_kernel, largest = profile_frame(renderer)
     prep = per_kernel.pop("prepare_stream")
     big = max(prep, key=lambda x: x["lanes"])
@@ -1016,31 +910,24 @@ def scene_frame(label, renderer, rates, mismatches, profile_dir=None,
           f" ms in all; on the largest batch ({big['lanes']} lanes) "
           f"{big['ms']:.3f} ms and {big['peak_gib']:.3f} GiB of peak memory "
           "above what was allocated before it", flush=True)
-    from royaltracer_dx_tpu_torch.ops import stream_trace as st
-
     entries = {}
     for name in KERNELS:
         pk = per_kernel[name]
         if batches:
             print(f"  {label} {name} batches:", flush=True)
-            frame_bound = print_batches(pk["batches"], rates)
-        else:
-            frame_bound = sum(st.bound_ms(b, *rates)["bound_ms"]
-                              for b in pk["batches"])
+            print_batches(pk["batches"])
         print(f"  {label} {name}: {pk['frame_launches']} launches, "
-              f"{pk['frame_ms']:.3f} ms per frame (bound {frame_bound:.3f} "
-              "ms)", flush=True)
+              f"{pk['frame_ms']:.3f} ms per frame", flush=True)
         _, call, out = largest[name]
-        e = kernel_vs_plain(label, name, call, out, rates, mismatches)
+        e = kernel_vs_plain(label, name, call, out, mismatches)
         e.update(frame_ms=pk["frame_ms"], frame_launches=pk["frame_launches"],
-                 frame_bound_ms=frame_bound,
                  frame_blocks_per_live_chunk=sum(
                      b["blocks_visited"] for b in pk["batches"])
                  / max(sum(b["live_chunks"] for b in pk["batches"]), 1))
         entries[name] = e
     info = dict(timed_frame_ms=prof_ms, prepare_calls=len(prep),
                 prepare_ms=sum(x["ms"] for x in prep),
-                prepare_largest=big, profile=profile)
+                prepare_largest=big)
     return entries, info, largest
 
 
@@ -1168,7 +1055,7 @@ def presort_check(label, renderer):
     return dict(frame_ms=ms, batches=rows, largest=big, **counts, **sums)
 
 
-def phase_scenes(out_dir, rates, mismatches, profile_dir=None):
+def phase_scenes(out_dir, mismatches):
     from royaltracer_dx_tpu_torch.camera import Camera, generate_rays
     from royaltracer_dx_tpu_torch.config import RenderConfig
     from royaltracer_dx_tpu_torch.ops import intersect as it
@@ -1230,8 +1117,7 @@ def phase_scenes(out_dir, rates, mismatches, profile_dir=None):
               f"{res2['renderer'].frame}, fb.count 4; {secs2:.1f} s, frame "
               f"{res2['frame_ms'][0]:.3f} ms; launches {launches2}",
               flush=True)
-        e, info, _ = scene_frame("sponza", res2["renderer"], rates,
-                                 mismatches, profile_dir)
+        e, info, _ = scene_frame("sponza", res2["renderer"], mismatches)
         presort = presort_check("sponza", res2["renderer"])
         for k in KERNELS:
             entries[k]["sponza"] = dict(e[k], launches=launches[k])
@@ -1259,8 +1145,7 @@ def phase_scenes(out_dir, rates, mismatches, profile_dir=None):
               f"width on {sum(c['half'] for c in comp_log)} of "
               f"{len(comp_log)} bounces", flush=True)
         comp_b = list(comp_log)
-        e, info, largest = scene_frame("dragon", r, rates, mismatches,
-                                       profile_dir)
+        e, info, largest = scene_frame("dragon", r, mismatches)
         for k in KERNELS:
             entries[k]["dragon"] = dict(e[k], launches=launches[k])
         # the refitted accel against brute force on 65,536 of the frame's
@@ -1345,8 +1230,8 @@ def phase_scenes(out_dir, rates, mismatches, profile_dir=None):
         rates_t[name + "_kernel_only"] = dict(ms=kms,
                                               mrays_per_s=n / kms / 1e3)
         entries[name]["terrain"] = dict(
-            kernel_vs_plain("terrain", name, calls[name], kout, rates,
-                            mismatches), launches=launches[name])
+            kernel_vs_plain("terrain", name, calls[name], kout, mismatches),
+            launches=launches[name])
     print(f"  terrain: {tris.shape[0]} triangles, {accel.num_blocks} blocks;"
           f" build {[round(x, 3) for x in build]} ms; 512x512 rays, "
           f"{float(occ.float().mean()):.4f} of the shadow batch occluded; "
@@ -1449,12 +1334,10 @@ def accuracy_row(label, oracle, cand, bars, jax_row):
     return row
 
 
-def phase_oracles(out_dir, rates, mismatches, restir_sponza,
-                  profile_dir=None):
+def phase_oracles(out_dir, mismatches, restir_sponza):
     """Phase 5: the megakernel Renderer and the DiOracle on the card.
     ``restir_sponza``: phase 4's sponza entries per kernel, for the walk
-    of the ReSTIR frame's any-hit batch beside the megakernel's;
-    ``profile_dir`` as for ``scene_frame``."""
+    of the ReSTIR frame's any-hit batch beside the megakernel's."""
     from royaltracer_dx_tpu_torch.camera import Camera, generate_rays
     from royaltracer_dx_tpu_torch.config import RenderConfig
     from royaltracer_dx_tpu_torch.render import megakernel
@@ -1501,16 +1384,16 @@ def phase_oracles(out_dir, rates, mismatches, restir_sponza,
           f"{r.frame}, fb.count 4; frame {res2['frame_ms'][0]:.3f} ms, "
           f"{r.metrics['mrays_per_s']:.2f} Mrays/s; launches {launches2}",
           flush=True)
-    e, info, _ = scene_frame("sponza megakernel", r, rates, mismatches,
-                             profile_dir, batches=True)
+    e, info, _ = scene_frame("sponza megakernel", r, mismatches,
+                             batches=True)
     for k in KERNELS:
         entries[k]["sponza_megakernel"] = dict(e[k], launches=launches[k])
     walk = dict(
         megakernel_frame=e["stream_any"]["frame_blocks_per_live_chunk"],
-        megakernel_largest=e["stream_any"]["work"]["blocks_per_live_chunk"],
+        megakernel_largest=e["stream_any"]["walk"]["blocks_per_live_chunk"],
         restir_frame=restir_sponza["stream_any"].get(
             "frame_blocks_per_live_chunk"),
-        restir_largest=restir_sponza["stream_any"]["work"][
+        restir_largest=restir_sponza["stream_any"]["walk"][
             "blocks_per_live_chunk"])
     print(f"  any-hit walk, blocks visited per live chunk on sponza: "
           f"megakernel frame {walk['megakernel_frame']:.3f} (its first "
@@ -1687,13 +1570,13 @@ class BvhLaunches:
     lanes (evenly strided; every lane of a smaller batch) with the
     kernel's outputs there, for ``check`` against the plain version
     afterwards.  A lane's answer depends on that lane alone, so a sample
-    is a fair check.  With ``work`` each batch is launched once more with
-    the walk counts (for its bound) and the largest batch of each kernel
-    is kept; with ``stream`` (a StreamAccel of the same triangles) the
+    is a fair check.  With ``walk`` each batch is launched once more with
+    the walk counts and the largest batch of each kernel is kept; with
+    ``stream`` (a StreamAccel of the same triangles) the
     stream kernel traces the same rays, timed alone."""
 
-    def __init__(self, label, work=False, stream=None):
-        self.label, self.work, self.stream = label, work, stream
+    def __init__(self, label, walk=False, stream=None):
+        self.label, self.walk, self.stream = label, walk, stream
         self.recs: list = []
         self.largest: dict = {}
 
@@ -1718,15 +1601,14 @@ class BvhLaunches:
         idx = sample_lanes(n, rays.device)
         rec = dict(name=name, lanes=n, start=start, end=end, bvh=bvh,
                    rays=rays[idx], outs=tuple(o[idx] for o in outs))
-        if self.work:
+        if self.walk:
             tmp = tuple(torch.empty_like(o) for o in outs)
             st_buf = torch.empty((n, 3), dtype=torch.int32,
                                  device=rays.device)
             counters = self.real(name, rays, bvh, tmp, st_buf)
-            rec["work"] = self.tv.bvh_work(rays, bvh, st_buf,
-                                           name == "bvh_closest")
+            rec["walk"] = bvh_walk(rays, bvh, st_buf, name == "bvh_closest")
             rec["root_tests"] = int(counters[1])
-            check_root_tests(f"{self.label} {name}", rec["work"],
+            check_root_tests(f"{self.label} {name}", rec["walk"],
                              rec["root_tests"])
             if n > self.largest.get(name, (0,))[0]:
                 self.largest[name] = (n, rays, bvh)
@@ -1747,7 +1629,7 @@ class BvhLaunches:
         """Every recorded launch's sample against the plain version:
         t/u/v and triangle ids (closest) or the occlusion flags (any)
         bit-equal; for closest also the walk's stats (node tests, triangle
-        tests, root transitions: what the bound reads), from one more
+        tests, root transitions), from one more
         launch with stats on the sampled rays (a lane's walk depends on
         that lane alone).  Call it after the path's launches are read:
         those launches count.  Fails on any difference."""
@@ -1777,11 +1659,9 @@ class BvhLaunches:
                      "lanes")
         return len(self.recs)
 
-    def per_kernel(self, rates):
-        """Per kernel: launches, the summed ms and bound of its batches,
-        and one line per batch."""
-        from royaltracer_dx_tpu_torch.ops import stream_trace as st
-
+    def per_kernel(self):
+        """Per kernel: launches, the summed ms of its batches, and one line
+        per batch."""
         out = {}
         for name in BVH_KERNELS:
             recs = [r for r in self.recs if r["name"] == name]
@@ -1789,12 +1669,9 @@ class BvhLaunches:
             for r in recs:
                 ms = r["start"].elapsed_time(r["end"])
                 line = dict(lanes=r["lanes"], ms=ms)
-                if "work" in r:
-                    w = r["work"]
-                    line.update(bound_ms=st.bound_ms(w, *rates)["bound_ms"],
-                                dense_top_bound_ms=dense_bound(
-                                    w, rates, "dense_top_fp32_ops"),
-                                top_tests_per_live_lane=w["top_tests"]
+                if "walk" in r:
+                    w = r["walk"]
+                    line.update(top_tests_per_live_lane=w["top_tests"]
                                 / max(w["live_lanes"], 1),
                                 nodes_per_lane=w["nodes_per_lane"],
                                 tris_per_lane=w["tris_per_lane"],
@@ -1807,57 +1684,51 @@ class BvhLaunches:
                     line["stream_ms"] = r["stream_ms"]
                 lines.append(line)
             out[name] = dict(launches=len(recs), batches=lines,
-                             ms=sum(x["ms"] for x in lines),
-                             bound_ms=sum(x.get("bound_ms", 0.0)
-                                          for x in lines),
-                             dense_top_bound_ms=sum(
-                                 x.get("dense_top_bound_ms", 0.0)
-                                 for x in lines))
+                             ms=sum(x["ms"] for x in lines))
         return out
 
 
-def dense_bound(work, rates, key="dense_fp32_ops"):
-    """The bound with ``work[key]`` in place of the operations the answer
-    needs: the earlier, denser yardstick, to compare with.  For the LBVH
-    ``dense_top_fp32_ops`` (S root slab tests a live closest lane, not
-    one scan's); for the clusters ``dense_fp32_ops`` (every padded ray,
-    and every lane of a walking tile against every triangle of a
-    step)."""
-    from royaltracer_dx_tpu_torch.ops import stream_trace as st
+def bvh_walk(rays, bvh, stats, closest) -> dict:
+    """What one bvh_closest / bvh_any call walked, from the per-lane stats
+    the kernel wrote: node and triangle tests, a lane and in all, the live
+    lanes (t_max > t_min) and, for closest, the root-scan slab tests one
+    scan of each live lane needs (``traverse.top_scan_tests``)."""
+    from royaltracer_dx_tpu_torch.ops import traverse as tv
 
-    return st.bound_ms(dict(work, fp32_ops=work[key]), *rates)["bound_ms"]
+    n = max(rays.shape[0], 1)
+    node_tests, tri_tests = int(stats[:, 0].sum()), int(stats[:, 1].sum())
+    return dict(live_lanes=int((rays[:, 7] > rays[:, 6]).sum()),
+                top_tests=(int(tv.top_scan_tests(rays, bvh).sum())
+                           if closest else 0),
+                node_tests=node_tests, tri_tests=tri_tests,
+                nodes_per_lane=node_tests / n, tris_per_lane=tri_tests / n)
 
 
-def check_root_tests(label, work, scanned):
+def check_root_tests(label, walk, scanned):
     """The closest kernel's root scans (counters[1]) make at least the
-    slab tests the bound counts for them: the first scan of a lane is the
-    needed DFS (all 2S - 1 top nodes above t_max 1e30), rescans come on
-    top.  Any hit scans nothing."""
-    if scanned < work["top_tests"]:
+    slab tests one scan of each live lane needs: the first scan of a lane
+    is the needed DFS (all 2S - 1 top nodes above t_max 1e30), rescans
+    come on top.  Any hit scans nothing."""
+    if scanned < walk["top_tests"]:
         fail(f"{label}: the root scans made {scanned} slab tests, fewer "
-             f"than the {work['top_tests']} the bound counts")
+             f"than the {walk['top_tests']} one scan needs")
 
 
 def print_bvh_batches(label, per_kernel):
     for name, pk in per_kernel.items():
-        dense = (f"; {pk['dense_top_bound_ms']:.3f} ms with S root tests a "
-                 "live lane" if name == "bvh_closest" else "")
         print(f"  {label} {name}: {pk['launches']} launches, "
-              f"{pk['ms']:.3f} ms in all (bound {pk['bound_ms']:.3f} ms"
-              f"{dense})", flush=True)
+              f"{pk['ms']:.3f} ms in all", flush=True)
         for b in pk["batches"]:
             extra = ""
-            if "bound_ms" in b:
-                extra = (f", bound {b['bound_ms']:.3f} ms, "
-                         f"{b['nodes_per_lane']:.1f} node and "
+            if "nodes_per_lane" in b:
+                extra = (f", {b['nodes_per_lane']:.1f} node and "
                          f"{b['tris_per_lane']:.1f} triangle tests a lane "
                          f"({b['live_lanes']} live, a share of "
                          f"{b['live_share']:.3f})")
                 if name == "bvh_closest":
                     extra += (f", {b['root_tests_per_live_lane']:.1f} "
                               "root-scan slab tests a live lane (needed "
-                              f"{b['top_tests_per_live_lane']:.1f}; bound "
-                              f"with S: {b['dense_top_bound_ms']:.3f} ms)")
+                              f"{b['top_tests_per_live_lane']:.1f})")
             if "stream_ms" in b:
                 extra += f"; the stream kernel on the same rays " \
                          f"{b['stream_ms']:.3f} ms"
@@ -1865,15 +1736,14 @@ def print_bvh_batches(label, per_kernel):
                   flush=True)
 
 
-def bvh_kernel_entry(name, rec, rates, mismatches):
+def bvh_kernel_entry(name, rec, mismatches):
     """The kernels-line numbers of an LBVH kernel on the largest batch of
-    a run: its time alone (3 launches), the bound from that batch's walk
-    counts, the live share, for closest the root scans' slab tests a live
-    lane, and the plain version's time on the batch's fixed sample.  The
+    a run: its time alone (3 launches), that batch's walk counts, the live
+    share, for closest the root scans' slab tests a live lane, and the
+    plain version's time on the batch's fixed sample.  The
     kernel's output with stats is held against the plain version on two
     differently strided samples of the batch (t, u, v, triangle ids and
     the three stats bit-equal; occlusion equal)."""
-    from royaltracer_dx_tpu_torch.ops import stream_trace as st
     from royaltracer_dx_tpu_torch.ops import traverse as tv
 
     n, rays, bvh = rec
@@ -1887,9 +1757,8 @@ def bvh_kernel_entry(name, rec, rates, mismatches):
             (torch.empty((n,), dtype=torch.int32, device=rays.device),))
     st_buf = torch.empty((n, 3), dtype=torch.int32, device=rays.device)
     counters = tv._launch(name, rays, bvh, outs, st_buf)
-    work = tv.bvh_work(rays, bvh, st_buf, closest)
-    check_root_tests(f"{name} on its largest batch", work, int(counters[1]))
-    bound = st.bound_ms(work, *rates)
+    walk = bvh_walk(rays, bvh, st_buf, closest)
+    check_root_tests(f"{name} on its largest batch", walk, int(counters[1]))
     plain = tv._closest_plain if closest else tv._any_plain
     k = min(n, SAMPLE_LANES)
     samples = (sample_lanes(n, rays.device),
@@ -1913,17 +1782,15 @@ def bvh_kernel_entry(name, rec, rates, mismatches):
     sample = rays[samples[0]]
     plain_ms, _ = cuda_ms(lambda: plain(sample, bvh))
     err = max([c["max_abs_err"] for c in mismatches.get(name, [])] + [0.0])
-    live = work["live_lanes"]
+    live = walk["live_lanes"]
     return dict(lanes=n, ms=ms, plain_ms=plain_ms,
                 plain_lanes=int(sample.shape[0]), max_abs_err=err,
                 live_share=live / max(n, 1),
                 root_tests_per_live_lane=(int(counters[1]) / max(live, 1)
                                           if closest else None),
-                top_tests_per_live_lane=(work["top_tests"] / max(live, 1)
+                top_tests_per_live_lane=(walk["top_tests"] / max(live, 1)
                                          if closest else None),
-                dense_top_bound_ms=(dense_bound(
-                    work, rates, "dense_top_fp32_ops") if closest else None),
-                work=work, **bound)
+                walk=walk)
 
 
 # 1920x1080: a band's scattered closest-hit batches (1,036,800 rays on 2
@@ -2046,7 +1913,7 @@ def route_disagreement(calls, sa, cfg) -> dict:
                              & (bits(t) != bits(h.t))).sum()))
 
 
-def phase_sharding(rates, out_dir, keep):
+def phase_sharding(out_dir, keep):
     """(a) The menger frame on 1, 2 and 4 bands of one card.  At 1280x720
     every band count takes the same routes, and each banded image is held
     within rtol 1e-5 / atol 1e-6 of one device's (static and after a move
@@ -2135,7 +2002,7 @@ def phase_sharding(rates, out_dir, keep):
     return out
 
 
-def phase_lbvh(out_dir, rates, mismatches, terrain_stream):
+def phase_lbvh(out_dir, mismatches, terrain_stream):
     """(b) sponza --bvh through cli.main, (c) the terrain accel, (d) dragon
     --bvh --animate.  Returns (results, kernel entries)."""
     from royaltracer_dx_tpu_torch import cli
@@ -2169,7 +2036,7 @@ def phase_lbvh(out_dir, rates, mismatches, terrain_stream):
         t0 = time.perf_counter()
         checked = rec.check(mismatches)
         check_s = time.perf_counter() - t0
-        pk = rec.per_kernel(rates)
+        pk = rec.per_kernel()
         print(f"  {label}: cli.main {secs:.1f} s, frames "
               f"{[round(x, 3) for x in res['frame_ms']]} ms, refit "
               f"{[round(x, 3) for x in res['refit_ms']]} ms, peak memory "
@@ -2189,10 +2056,10 @@ def phase_lbvh(out_dir, rates, mismatches, terrain_stream):
     sa = r.scene_arrays
     print(f"  sponza LBVH: {sa.num_triangles} triangles, "
           f"{sa.bvh.num_leaves} leaves of {sa.bvh.leaf_size}", flush=True)
-    with BvhLaunches("sponza --bvh timed frame", work=True) as rec:
+    with BvhLaunches("sponza --bvh timed frame", walk=True) as rec:
         r.render()
         torch.cuda.synchronize()
-    pk = rec.per_kernel(rates)
+    pk = rec.per_kernel()
     print_bvh_batches("sponza --bvh ReSTIR frame", pk)
     largest = dict(rec.largest)
     row["timed_frame"] = pk
@@ -2205,11 +2072,11 @@ def phase_lbvh(out_dir, rates, mismatches, terrain_stream):
                         "megakernel", *size, "--frames", "1", "--out", png], 1)
     r = res["renderer"]
     accel = st.build_stream_accel(r.scene_arrays.tri_verts)
-    with BvhLaunches("sponza --bvh megakernel timed frame", work=True,
+    with BvhLaunches("sponza --bvh megakernel timed frame", walk=True,
                      stream=accel) as rec:
         r.render()
         torch.cuda.synchronize()
-    pk = rec.per_kernel(rates)
+    pk = rec.per_kernel()
     print_bvh_batches("sponza --bvh megakernel frame", pk)
     row["timed_frame"] = pk
     out["sponza_megakernel"] = row
@@ -2218,21 +2085,18 @@ def phase_lbvh(out_dir, rates, mismatches, terrain_stream):
 
     entries = {}
     for name, (replaces, fn) in BVH_KERNELS.items():
-        e = bvh_kernel_entry(name, largest[name], rates, mismatches)
+        e = bvh_kernel_entry(name, largest[name], mismatches)
         res = tv.BUILD_INFO["resources"][name]
         roots = ("" if e["root_tests_per_live_lane"] is None else
                  f", {e['root_tests_per_live_lane']:.1f} root-scan slab "
                  f"tests a live lane (needed "
-                 f"{e['top_tests_per_live_lane']:.1f}; the bound with S "
-                 f"root tests a live lane {e['dense_top_bound_ms']:.3f} "
-                 "ms)")
+                 f"{e['top_tests_per_live_lane']:.1f})")
         print(f"  {name} on sponza's largest ReSTIR batch ({e['lanes']} "
               f"lanes, a live share of {e['live_share']:.3f}): kernel "
-              f"{e['ms']:.3f} ms, bound {e['bound_ms']:.3f} ms "
-              f"({e['bound_by']}), plain version {e['plain_ms']:.3f} ms on "
+              f"{e['ms']:.3f} ms, plain version {e['plain_ms']:.3f} ms on "
               f"its {e['plain_lanes']}-lane sample; "
-              f"{e['work']['nodes_per_lane']:.1f} node and "
-              f"{e['work']['tris_per_lane']:.1f} triangle tests a lane"
+              f"{e['walk']['nodes_per_lane']:.1f} node and "
+              f"{e['walk']['tris_per_lane']:.1f} triangle tests a lane"
               f"{roots}; {res['ctas_per_sm']} CTAs of {res['threads']} "
               f"threads an SM, {res['registers']} registers; two strided "
               "samples equal to the plain version", flush=True)
@@ -2322,9 +2186,9 @@ CLUSTER_KERNELS = {
 # whole tiles held against the plain versions (a lane sample would break
 # the tiles, and a tile's answer depends on all of its rays)
 CHECK_TILES = 512
-# cluster_study.pack_case's adversarial tiles: (tile, group, sponge level)
+# cluster_cases.pack_case's adversarial tiles: (tile, group, sponge level)
 PACK_CASES = ((128, 128, 2), (96, 100, 2), (128, 1, 1), (1024, 1024, 2))
-# cluster_study.mask_case's adversarial phase A tiles: (tile, clusters)
+# cluster_cases.mask_case's adversarial phase A tiles: (tile, clusters)
 MASK_CASES = ((128, 38), (96, 2073), (1024, 1), (1024, 38))
 
 
@@ -2392,16 +2256,28 @@ class NoPlain:
             setattr(self.mod, n, fn)
 
 
+def tile_steps(stats) -> dict:
+    """What one phase B call walked, from its per-tile stats [tiles, 2]:
+    the tiles, those that took a step, and the steps in all, a tile and
+    of the longest tile."""
+    steps = stats[:, 0]
+    tiles = int(steps.numel())
+    return dict(tiles=tiles, live_tiles=int((steps > 0).sum()),
+                steps=int(steps.sum()),
+                steps_per_tile=int(steps.sum()) / max(tiles, 1),
+                max_steps=int(steps.max()) if tiles else 0)
+
+
 class ClusterLaunches:
     """While a path runs, wraps the three cluster kernels' wrappers: times
     every call with CUDA events, launches each phase B batch once more
-    with its per-tile stats for the batch's work (``cluster_work``), and
-    keeps each kernel's largest call.  With ``stream`` (a StreamAccel of
-    the same triangles) the stream kernel traces each phase B batch's
-    rays too, timed alone."""
+    with its per-tile stats (``tile_steps``), and keeps each kernel's
+    largest call.  With ``stream`` (a StreamAccel of the same triangles)
+    the stream kernel traces each phase B batch's rays too, timed
+    alone."""
 
-    def __init__(self, rates, stream=None):
-        self.rates, self.stream = rates, stream
+    def __init__(self, stream=None):
+        self.stream = stream
         self.recs: list = []
         self.largest: dict = {}
 
@@ -2427,14 +2303,11 @@ class ClusterLaunches:
             start.record()
             out = real(rows, cl, *args)
             end.record()
-            tile = args[-1]
             stats = None
             if name != "cluster_mask":
                 stats = real(rows, cl, *args, stats=True)[-1]
-            work = self.ct.cluster_work(rows, cl, tile, stats,
-                                        name == "cluster_closest")
             rec = dict(name=name, lanes=rows.shape[0], start=start, end=end,
-                       work=work)
+                       steps=tile_steps(stats) if stats is not None else {})
             if self.stream is not None and stats is not None:
                 from royaltracer_dx_tpu_torch.ops import stream_trace as st
 
@@ -2453,27 +2326,16 @@ class ClusterLaunches:
         return call
 
     def per_kernel(self):
-        """Per kernel: launches, the summed ms and bound of its batches,
-        and one line per batch."""
-        from royaltracer_dx_tpu_torch.ops import stream_trace as st
-
+        """Per kernel: launches, the summed ms of its batches, and one line
+        per batch."""
         out = {}
         for name in CLUSTER_KERNELS:
-            lines = []
-            for r in self.recs:
-                if r["name"] != name:
-                    continue
-                b = st.bound_ms(r["work"], *self.rates)
-                lines.append(dict(r["work"], ms=r["start"].elapsed_time(
-                    r["end"]), bound_ms=b["bound_ms"],
-                    bound_by=b["bound_by"],
-                    nofma_floor_ms=b["nofma_floor_ms"],
-                    dense_bound_ms=dense_bound(r["work"], self.rates),
-                    stream_ms=r.get("stream_ms")))
+            lines = [dict(r["steps"], lanes=r["lanes"],
+                          ms=r["start"].elapsed_time(r["end"]),
+                          stream_ms=r.get("stream_ms"))
+                     for r in self.recs if r["name"] == name]
             out[name] = dict(launches=len(lines), batches=lines,
-                             **{k: sum(x[k] for x in lines) for k in (
-                                 "ms", "bound_ms", "nofma_floor_ms",
-                                 "dense_bound_ms")},
+                             ms=sum(x["ms"] for x in lines),
                              stream_ms=sum(x["stream_ms"] or 0.0
                                            for x in lines))
         return out
@@ -2557,12 +2419,11 @@ def mask_check(label, rows, cl, tile, mismatches):
           f"kernel / plain ms {ms:.3f} / {plain:.3f}", flush=True)
 
 
-def cluster_timed(label, rows, cl, tile, rates):
+def cluster_timed(label, rows, cl, tile):
     """The three kernels on a whole batch: ms (3 launches after a warm
-    one) and the bound of each (``cluster_work``, from one more launch
-    with stats), with the dense bound beside it."""
+    one) and, for phase B, the steps (``tile_steps``, from one more launch
+    with stats)."""
     from royaltracer_dx_tpu_torch.ops import cluster_traverse as ct
-    from royaltracer_dx_tpu_torch.ops import stream_trace as st
 
     mask, entry = ct.cluster_mask(rows, cl, tile)
     wl, went, count = ct.worklists(mask, entry)
@@ -2576,21 +2437,16 @@ def cluster_timed(label, rows, cl, tile, rates):
     for name, fn in calls.items():
         cuda_ms(fn)
         ms, _ = cuda_ms(fn, reps=3)
-        stats = None if name == "cluster_mask" else fn(stats=True)[-1]
-        work = ct.cluster_work(rows, cl, tile, stats,
-                               name == "cluster_closest")
-        out[name] = dict(ms=ms, **st.bound_ms(work, *rates), work=work,
-                         dense_bound_ms=dense_bound(work, rates))
+        out[name] = dict(ms=ms)
+        if name != "cluster_mask":
+            out[name]["steps"] = tile_steps(fn(stats=True)[-1])
     print(f"  {label} ({rows.shape[0]} lanes, {cl.num_clusters} clusters of "
           f"{cl.group}, tiles of {tile}): "
-          + "; ".join(f"{n} {v['ms']:.3f} ms, bound {v['bound_ms']:.3f} ms "
-                      f"({v['bound_by']}; no-FMA floor "
-                      f"{v['nofma_floor_ms']:.3f}; dense "
-                      f"{v['dense_bound_ms']:.3f})" for n, v in out.items())
+          + "; ".join(f"{n} {v['ms']:.3f} ms" for n, v in out.items())
           + f"; closest steps a tile "
-          f"{out['cluster_closest']['work']['steps_per_tile']:.2f} (max "
-          f"{out['cluster_closest']['work']['max_steps']}), any "
-          f"{out['cluster_any']['work']['steps_per_tile']:.2f}", flush=True)
+          f"{out['cluster_closest']['steps']['steps_per_tile']:.2f} (max "
+          f"{out['cluster_closest']['steps']['max_steps']}), any "
+          f"{out['cluster_any']['steps']['steps_per_tile']:.2f}", flush=True)
     return out
 
 
@@ -2602,7 +2458,7 @@ def varied_bounds(n, dev):
                        torch.where(lane % 2 == 0, 1.0, 1e4))
 
 
-def phase_cluster(out_dir, rates, mismatches):
+def phase_cluster(out_dir, mismatches):
     """(a) the cluster kernels against their plain versions, (b) the
     1080p menger ReSTIR frame under traversal="cluster" (the slice's main
     path), (c) a megakernel and a DiOracle frame under it, (d) the stream
@@ -2654,13 +2510,13 @@ def phase_cluster(out_dir, rates, mismatches):
         cluster_check(label, rows, cl, tile, mismatches,
                       None if at is None else n_t - min(CHECK_TILES, n_t))
     del sa, o, d, cl, cpu
-    from royaltracer_dx_tpu_torch.tools.cluster_study import pack_case
+    from royaltracer_dx_tpu_torch.tools.cluster_cases import pack_case
 
     for tile, group, level in PACK_CASES:
         rows, cl, _ = pack_case(dev, tile, group, level)
         cluster_check(f"adversarial tiles (pack_case), tiles of {tile}, "
                       f"clusters of {group}", rows, cl, tile, mismatches, 0)
-    from royaltracer_dx_tpu_torch.tools.cluster_study import mask_case
+    from royaltracer_dx_tpu_torch.tools.cluster_cases import mask_case
 
     for tile, c in MASK_CASES:
         rows, cl, _ = mask_case(dev, tile, c, max(1, 4096 // (tile + 4)))
@@ -2672,8 +2528,7 @@ def phase_cluster(out_dir, rates, mismatches):
         128, sa.clusters.num_clusters)}
     out["sponza_primary"] = dict(
         triangles=sa.num_triangles, clusters=sa.clusters.num_clusters,
-        **cluster_timed("sponza primary batch", rows, sa.clusters, 128,
-                        rates))
+        **cluster_timed("sponza primary batch", rows, sa.clusters, 128))
     cluster_check("sponza primary batch", rows, sa.clusters, 128, mismatches)
     sponza_tris = sa.tri_verts
     del sa, o, d, rows
@@ -2719,7 +2574,7 @@ def phase_cluster(out_dir, rates, mismatches):
         write_png(os.path.join(out_dir, "menger_cluster.png"),
                   renderer.image())
     stream = st.build_stream_accel(rsa.tri_verts)
-    with ClusterLaunches(rates, stream) as rec:
+    with ClusterLaunches(stream) as rec:
         timed_ms, _ = cuda_ms(renderer.render)
     pk = rec.per_kernel()
     print(f"  menger cluster frame with timed launches: {timed_ms:.3f} ms "
@@ -2730,10 +2585,7 @@ def phase_cluster(out_dir, rates, mismatches):
                   f"; the stream kernel on the same rays "
                   f"{pk[name]['stream_ms']:.3f} ms")
         print(f"  {name}: {pk[name]['launches']} launches, "
-              f"{pk[name]['ms']:.3f} ms a frame (bound "
-              f"{pk[name]['bound_ms']:.3f} ms; no-FMA floor "
-              f"{pk[name]['nofma_floor_ms']:.3f}; dense "
-              f"{pk[name]['dense_bound_ms']:.3f}){beside}; batches:",
+              f"{pk[name]['ms']:.3f} ms a frame{beside}; batches:",
               flush=True)
         for b in pk[name]["batches"]:
             extra = ("" if name == "cluster_mask" else
@@ -2743,36 +2595,26 @@ def phase_cluster(out_dir, rates, mismatches):
                      f"step of the longest tile; live tiles "
                      f"{b['live_tiles']} of {b['tiles']}); stream kernel "
                      f"{b['stream_ms']:.3f} ms")
-            print(f"    {b['lanes']} lanes: {b['ms']:.3f} ms, bound "
-                  f"{b['bound_ms']:.3f} ms ({b['bound_by']}; no-FMA floor "
-                  f"{b['nofma_floor_ms']:.3f}; dense "
-                  f"{b['dense_bound_ms']:.3f}){extra}", flush=True)
+            print(f"    {b['lanes']} lanes: {b['ms']:.3f} ms{extra}",
+                  flush=True)
     entries = {}
     for name, (replaces, fn) in CLUSTER_KERNELS.items():
         lanes, (rows, cl, *rest) = rec.largest[name]
         tile = rest[-1]
-        big = cluster_timed(f"{name}'s largest menger batch", rows, cl, tile,
-                            rates)[name]
+        big = cluster_timed(f"{name}'s largest menger batch", rows, cl,
+                            tile)[name]
         chk = cluster_check(f"{name}'s largest menger batch", rows, cl, tile,
                             mismatches)
         entries[name] = dict(
             name=name, route="cuda", source=CLUSTER_SOURCE,
             replaces=replaces, replaces_fn=fn, launches=launches[name],
-            ms=big["ms"], bound_ms=big["bound_ms"],
-            bound_by=big["bound_by"], dense_bound_ms=big["dense_bound_ms"],
-            nofma_floor_ms=big["nofma_floor_ms"],
-            bytes_ms=big["bytes_ms"],
-            ops_ms=big["ops_ms"], shape_lanes=lanes,
+            ms=big["ms"], shape_lanes=lanes,
             plain_ms=chk["plain_ms"][name], plain_lanes=chk["lanes"],
             slice_ms=chk["ms"][name], library_ms=None,
             frame_ms=pk[name]["ms"], frame_launches=pk[name]["launches"],
-            frame_bound_ms=pk[name]["bound_ms"],
-            frame_nofma_floor_ms=pk[name]["nofma_floor_ms"],
-            frame_dense_bound_ms=pk[name]["dense_bound_ms"],
             frame_stream_ms=pk[name]["stream_ms"],
             frame_batches=pk[name]["batches"],
-            sponza_primary={k: out["sponza_primary"][name][k] for k in (
-                "ms", "bound_ms", "nofma_floor_ms", "dense_bound_ms")},
+            sponza_primary=out["sponza_primary"][name],
             resources=ct.BUILD_INFO["resources"][name],
             **({"resources_at_batch": mask_res} if name == "cluster_mask"
                else {}))
@@ -2952,7 +2794,7 @@ def kernel_device_ms(fn, key, reps=5):
     return sum(us) / 1e3 / reps if us else None
 
 
-def mxu_path(scene_name, w, h, rates, mismatches, plain, dev):
+def mxu_path(scene_name, w, h, mismatches, plain, dev):
     """One scene's camera batch and shadow batch: the main path through
     closest_hit_mxu / any_hit_mxu with every count set to 0 just before
     and read just after, the kernels against the plain versions
@@ -3031,14 +2873,6 @@ def mxu_path(scene_name, w, h, rates, mismatches, plain, dev):
         cuda_ms(lambda: kern(*args, mt), reps=2)
         ms, _ = cuda_ms(lambda: kern(*args, mt), reps=3)
         live = int((args[2] < args[3]).sum())
-        work = mx.mxu_work(n, mt, live, int(tests.sum()), kind == "closest")
-        fp32 = st.bound_ms(work, *rates)
-        tc = mx.tc_bound_ms(work, *rates)
-        # the bound: the least time, with the sums on the tensor cores
-        bound = dict(fp32, fp32_bound_ms=fp32["bound_ms"], **tc,
-                     bound_ms=tc["tc_bound_ms"],
-                     bound_by="bytes" if tc["tc_bound_by"] == "bytes"
-                     else "operations")
         counts = mx.filter_counts(*args, mt, closest=kind == "closest")
         share = counts["candidates"] / max(counts["pairs"], 1)
         call = st.prepare_stream(args[0], args[1], acc, args[2], args[3],
@@ -3077,20 +2911,13 @@ def mxu_path(scene_name, w, h, rates, mismatches, plain, dev):
                             f"{k} not measured" for k, v in device.items())
         res[name] = dict(ms=ms, plain_ms=plain_ms, plain_lanes=n,
                          stream_ms=stream_ms, bvh_ms=bvh_ms,
-                         library_ms=library_ms, work=work, counts=counts,
-                         candidate_share=share, device_ms=device, **bound,
-                         **agree)
+                         library_ms=library_ms, live_lanes=live,
+                         counts=counts, candidate_share=share,
+                         device_ms=device, **agree)
         print(f"  {scene_name} {name}: {n} lanes ({live} live) x "
               f"{mt.num_tris} triangles ({mt.padded} padded): kernel "
-              f"{ms:.3f} ms; tensor-core bound {tc['tc_bound_ms']:.3f} ms "
-              f"({tc['tc_bound_by']}: TF32 {tc['tc_tf32_ms']:.3f}, FP32 "
-              f"{tc['tc_fp32_ms']:.3f}; the kernel at "
-              f"{tc['tc_bound_ms'] / ms:.1%}), "
-              f"FP32-only bound {fp32['bound_ms']:.3f} ms "
-              f"(the kernel at {fp32['bound_ms'] / ms:.1%}; no-FMA floor "
-              f"{fp32['nofma_floor_ms']:.3f}; every padded pair "
-              f"{work['dense_fp32_ops'] / rates[0] * 1e3:.3f}); filter "
-              f"kept {counts['candidates']} of {counts['pairs']} pairs "
+              f"{ms:.3f} ms; filter kept {counts['candidates']} of "
+              f"{counts['pairs']} pairs "
               f"({share:.4%}), {counts['accepted']} accepted, "
               f"{counts['exact_rays']} rays on the exact scan; "
               f"stream_{kind} {stream_ms:.3f} ms, bvh_{kind} {bvh_ms:.3f} "
@@ -3155,7 +2982,7 @@ def aos_on_card(dev):
     return sorted(out)
 
 
-def phase_mxu(rates, mismatches):
+def phase_mxu(mismatches):
     """(a) menger and (b) Cornell through the MXU kernels (``mxu_path``),
     (c) the adversarial cases of tools/mxu_cases.py, kernel against plain
     bit for bit, and one AoS function of each family on the card.
@@ -3163,8 +2990,6 @@ def phase_mxu(rates, mismatches):
     from royaltracer_dx_tpu_torch.ops import mxu_trace as mx
     from royaltracer_dx_tpu_torch.tools.mxu_cases import MXU_CASES, mxu_case
     from royaltracer_dx_tpu_torch.utils.cuda_build import nvcc
-
-    from royaltracer_dx_tpu_torch.ops import stream_trace as st
 
     dev = torch.device("cuda")
     out = {}
@@ -3195,8 +3020,8 @@ def phase_mxu(rates, mismatches):
         plain = guard.saved
         for scene_name, w, h in MXU_SCENES:
             t0 = time.perf_counter()
-            out[scene_name] = mxu_path(scene_name, w, h, rates, mismatches,
-                                       plain, dev)
+            out[scene_name] = mxu_path(scene_name, w, h, mismatches, plain,
+                                       dev)
             print(f"  ({scene_name}) {time.perf_counter() - t0:.1f} s",
                   flush=True)
         t0 = time.perf_counter()
@@ -3222,15 +3047,12 @@ def phase_mxu(rates, mismatches):
             name=name, route="cuda", source=MXU_SOURCE, replaces=replaces,
             replaces_fn=fn,
             launches=sum(out[s]["launches"][name] for s, _, _ in MXU_SCENES),
-            ms=big["ms"], bound_ms=big["bound_ms"], bound_by=big["bound_by"],
-            tc_bound_ms=big["tc_bound_ms"], fp32_bound_ms=big["fp32_bound_ms"],
-            nofma_floor_ms=big["nofma_floor_ms"], plain_ms=big["plain_ms"],
+            ms=big["ms"], plain_ms=big["plain_ms"],
             plain_lanes=big["plain_lanes"], library_ms=big["library_ms"],
             shape_lanes=out["menger"]["lanes"],
             candidate_share=big["candidate_share"],
             paths={s: {k: out[s][name][k] for k in (
-                "ms", "bound_ms", "fp32_bound_ms", "nofma_floor_ms",
-                "plain_ms", "library_ms", "stream_ms", "bvh_ms",
+                "ms", "plain_ms", "library_ms", "stream_ms", "bvh_ms",
                 "candidate_share", "device_ms")} for s, _, _ in MXU_SCENES},
             resources=mx.BUILD_INFO["resources"][name],
             filter=mx.BUILD_INFO["filter"])
@@ -3292,8 +3114,7 @@ class BruteCalls:
 def brute_check(label, kind, args, mismatches):
     """Both builds of a kernel against the plain version, bit for bit:
     (t, tri, u, v), or (occluded, tests in the counted build's order,
-    occluded by the uncounted build).  Returns (the plain version's ms,
-    the kernel's answer)."""
+    occluded by the uncounted build).  Returns the plain version's ms."""
     from royaltracer_dx_tpu_torch.ops import brute_trace as bt
     from royaltracer_dx_tpu_torch.ops import intersect as it
 
@@ -3313,7 +3134,7 @@ def brute_check(label, kind, args, mismatches):
                                                            hi))
         p_out = (p_occ, bt.first_hit_tests(o, d, lo, hi, tris), p_occ)
     mxu_mismatch(name, k_out, p_out, label, mismatches)
-    return plain_ms, k_out
+    return plain_ms
 
 
 def brute_frame_ms(label, render) -> dict:
@@ -3385,11 +3206,10 @@ def brute_plans(label, kind, args) -> dict:
     return plans
 
 
-def brute_timed(label, kind, args, rates, tests=None):
+def brute_timed(label, kind, args):
     """The kernel on a batch (CUDA events, and device time alone from
-    torch.profiler) beside brute_work's bound and the stream, LBVH and MXU
-    kernels on the same rays.  ``tests``: an any-hit batch's tests per ray
-    (the counted build's), which mt_stages follows."""
+    torch.profiler) beside the stream, LBVH and MXU kernels on the same
+    rays."""
     from royaltracer_dx_tpu_torch.ops import brute_trace as bt
     from royaltracer_dx_tpu_torch.ops import mxu_trace as mx
     from royaltracer_dx_tpu_torch.ops import stream_trace as st
@@ -3403,11 +3223,6 @@ def brute_timed(label, kind, args, rates, tests=None):
     cuda_ms(lambda: kern(*args), reps=2)
     ms, _ = cuda_ms(lambda: kern(*args), reps=5)
     live = int((lo < hi).sum())
-    stages = bt.mt_stages(o, d, lo, hi, tris, tests)
-    work = bt.brute_work(stages, t_count, n, closest, live)
-    bound = st.bound_ms(work, *rates)
-    every_stage = st.bound_ms(dict(work, fp32_ops=work["all_stages_fp32_ops"]),
-                              *rates)["bound_ms"]
     # every device operation of the call: the scratch's memset, the list
     # and the main kernel
     device = {"brute": kernel_device_ms(lambda: kern(*args), "")}
@@ -3439,17 +3254,11 @@ def brute_timed(label, kind, args, rates, tests=None):
     dev_txt = ", ".join(f"{k} {v:.4f}" if v is not None else
                         f"{k} not measured" for k, v in device.items())
     print(f"  {label} brute_{kind}: {n} lanes ({live} live) x {t_count} "
-          f"triangles: kernel {ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
-          f"({bound['bound_by']}, each pair to the stage it reaches; the "
-          f"kernel at {bound['bound_ms'] / ms:.1%}), no-FMA floor "
-          f"{bound['nofma_floor_ms']:.4f} ms, every pair to t "
-          f"{every_stage:.4f} ms; on the same rays "
+          f"triangles: kernel {ms:.4f} ms; on the same rays "
           + ", ".join(f"{k}_{kind} {v:.4f} ms" for k, v in others.items())
-          + f"; device time alone (torch.profiler) {dev_txt} ms; {work}",
-          flush=True)
+          + f"; device time alone (torch.profiler) {dev_txt} ms", flush=True)
     return dict(ms=ms, lanes=n, live_lanes=live, triangles=t_count,
-                work=work, others_ms=others, device_ms=device,
-                every_stage_bound_ms=every_stage, **bound)
+                others_ms=others, device_ms=device)
 
 
 def cornell_batches(dev):
@@ -3471,12 +3280,12 @@ def cornell_batches(dev):
     return sa, cam, (*sh, sa.tri_verts)
 
 
-def phase_brute(out_dir, rates, mismatches, band):
+def phase_brute(out_dir, mismatches, band):
     """(a) brute_closest / brute_any against the plain versions, bit for
     bit, on Cornell's and menger's batches, ``band`` (phase 6's 2-band
     1080p scattered batch) and tools/brute_cases.py's inputs, with the
     plan (slices) the device chose for each batch; (b) each timed beside
-    its bound and the other trace kernels; (c) the routes, by launch
+    the other trace kernels; (c) the routes, by launch
     counts.  Returns (results, kernel entries)."""
     from royaltracer_dx_tpu_torch import cli
     from royaltracer_dx_tpu_torch.config import RenderConfig
@@ -3574,10 +3383,9 @@ def phase_brute(out_dir, rates, mismatches, band):
     }
     res_b = {}
     for (scene_name, kind), (label, args) in batches.items():
-        plain_ms, k_out = brute_check(label, kind, args, mismatches)
-        tests = k_out[1] if kind == "any" else None
+        plain_ms = brute_check(label, kind, args, mismatches)
         plans = brute_plans(label, kind, args)
-        row = brute_timed(label, kind, args, rates, tests)
+        row = brute_timed(label, kind, args)
         row.update(plain_ms=plain_ms, plans=plans)
         print(f"    plain version {plain_ms:.3f} ms, bit-equal to the kernel",
               flush=True)
@@ -3605,9 +3413,8 @@ def phase_brute(out_dir, rates, mismatches, band):
             frame_device_ms_by_path={
                 path: out[path]["brute_frame"][name]["device_ms"]
                 for path in ("cornell_cli", "menger_512")},
-            ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
-            bound_by=big["bound_by"], nofma_floor_ms=big["nofma_floor_ms"],
-            library_ms=None, shape_lanes=big["lanes"],
+            ms=big["ms"], plain_ms=big["plain_ms"], library_ms=None,
+            shape_lanes=big["lanes"],
             resources=bt.BUILD_INFO["resources"][name])
     return out, entries
 
@@ -3640,9 +3447,7 @@ def pass_kernels_launched(label, before):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="",
-                    help="directory for the image (and the --profile trace)")
-    ap.add_argument("--profile", action="store_true",
-                    help="profile one more frame with torch.profiler")
+                    help="directory for the rendered images")
     args = ap.parse_args()
     if not os.path.exists(os.path.join(ROOT, SOURCE)):
         fail(f"{SOURCE} is not beside this script: run it from a checkout")
@@ -3676,11 +3481,8 @@ def main() -> None:
     dev = torch.device("cuda")
     props = torch.cuda.get_device_properties(dev)
     kind = torch.cuda.get_device_name(0)
-    peak_flops, hbm = st.card_rates(kind, props.multi_processor_count,
-                                    clock_mhz)
     print(f"phase 1: {kind}, {props.multi_processor_count} SMs, max SM clock "
-          f"{clock_mhz:.0f} MHz -> FP32 peak {peak_flops / 1e12:.2f} TFLOP/s, "
-          f"memory {hbm / 1e12:.2f} TB/s; torch {torch.__version__}, CUDA "
+          f"{clock_mhz:.0f} MHz; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     # one nvcc per source, started together
     with concurrent.futures.ThreadPoolExecutor(7) as pool:
@@ -3738,8 +3540,8 @@ def main() -> None:
     # ---- phase 2: kernels against their plain versions
     print("phase 2: kernels vs plain versions", flush=True)
     mismatches = phase_kernels(dev, sa)
-    tea = phase_tea(dev, (peak_flops, hbm), mismatches)
-    pick = phase_light_pick(dev, (peak_flops, hbm), mismatches)
+    tea = phase_tea(dev, mismatches)
+    pick = phase_light_pick(dev, mismatches)
 
     # ---- phase 3: frames (the counted main-path run)
     print(f"phase 3: {cfg.width}x{cfg.height} menger frames", flush=True)
@@ -3778,19 +3580,16 @@ def main() -> None:
     for name, replaces in KERNELS.items():
         pk = per_kernel[name]
         lanes_n, call, out = largest[name]
-        frame_bound = print_batches(pk["batches"], (peak_flops, hbm))
+        print_batches(pk["batches"])
         print(f"  {name}: {pk['frame_launches']} launches, "
-              f"{pk['frame_ms']:.3f} ms per frame (bound {frame_bound:.3f} "
-              "ms)", flush=True)
-        e = kernel_vs_plain("menger", name, call, out, (peak_flops, hbm),
-                            mismatches)
+              f"{pk['frame_ms']:.3f} ms per frame", flush=True)
+        e = kernel_vs_plain("menger", name, call, out, mismatches)
         entries.append(dict(
             e, name=name, route="cuda", source=SOURCE,
             replaces=REPLACES, replaces_fn=replaces,
             launches=launches[name], library_ms=None,
             shape_lanes=lanes_n,
-            frame_ms=pk["frame_ms"], frame_bound_ms=frame_bound,
-            frame_launches=pk["frame_launches"],
+            frame_ms=pk["frame_ms"], frame_launches=pk["frame_launches"],
             frame_batches=pk["batches"], mismatch=mismatches[name],
             resources=st.BUILD_INFO["resources"][name]))
     at = tea["tea_batch_at(7)"]
@@ -3801,8 +3600,7 @@ def main() -> None:
                     "tea_batch_at (XLA-fused, no Pallas kernel)",
         launches=launches["tea"], frame_launches=launches["tea"] // 5,
         library_ms=None, shape_lanes=at["lanes"], ms=at["ms"],
-        plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
-        bound_by=at["bound_by"], cases=tea, max_abs_err=0.0,
+        plain_ms=at["plain_ms"], cases=tea, max_abs_err=0.0,
         mismatch=dict(cases_checked=len(mismatches["tea_draws"]),
                       values_checked=sum(c["lanes"]
                                          for c in mismatches["tea_draws"]),
@@ -3817,8 +3615,7 @@ def main() -> None:
         launches=launches["light_pick"],
         frame_launches=launches["light_pick"] // 5, library_ms=None,
         shape_lanes=at["lanes"], ms=at["ms"], plain_ms=at["plain_ms"],
-        bound_ms=at["bound_ms"], bound_by=at["bound_by"], cases=pick,
-        max_abs_err=0.0,
+        cases=pick, max_abs_err=0.0,
         mismatch=dict(cases_checked=len(mismatches["light_pick"]),
                       values_checked=16 * sum(
                           c["lanes"] for c in mismatches["light_pick"]),
@@ -3827,7 +3624,6 @@ def main() -> None:
           f"{at['ms'] * 1e3:.1f} us a 2,073,600-lane pick of 384 lights",
           flush=True)
     agree = small_frames_agree()
-    profile = device_profile(renderer, args.out) if args.profile else None
     del renderer, sa
     torch.cuda.empty_cache()
 
@@ -3838,9 +3634,7 @@ def main() -> None:
         out_dir = args.out or tmp
         os.makedirs(out_dir, exist_ok=True)
         pass_at = pass_launches()
-        scenes, by_kernel = phase_scenes(
-            out_dir, (peak_flops, hbm), mismatches,
-            args.out if args.profile else None)
+        scenes, by_kernel = phase_scenes(out_dir, mismatches)
         pass_at = pass_kernels_launched("phase 4", pass_at)
         print(f"  scenes phase {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -3848,9 +3642,7 @@ def main() -> None:
         print("phase 5: oracles", flush=True)
         t0 = time.perf_counter()
         oracles, by_kernel_o = phase_oracles(
-            out_dir, (peak_flops, hbm), mismatches,
-            {k: by_kernel[k]["sponza"] for k in KERNELS},
-            args.out if args.profile else None)
+            out_dir, mismatches, {k: by_kernel[k]["sponza"] for k in KERNELS})
         pass_at = pass_kernels_launched("phase 5", pass_at)
         print(f"  oracles phase {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -3858,10 +3650,10 @@ def main() -> None:
         print("phase 6: sharding and LBVH", flush=True)
         t0 = time.perf_counter()
         kept = {}
-        sharding = phase_sharding((peak_flops, hbm), out_dir, kept)
+        sharding = phase_sharding(out_dir, kept)
         pass_kernels_launched("phase 6 (bands)", pass_at)
         lbvh, bvh_entries = phase_lbvh(
-            out_dir, (peak_flops, hbm), mismatches,
+            out_dir, mismatches,
             {k: v for k, v in scenes["terrain"]["rates"].items()})
         print(f"  sharding and LBVH phase {time.perf_counter() - t0:.1f} s",
               flush=True)
@@ -3869,23 +3661,21 @@ def main() -> None:
         # ---- phase 7: the cluster traversal
         print("phase 7: cluster traversal", flush=True)
         t0 = time.perf_counter()
-        cluster, cluster_entries = phase_cluster(out_dir, (peak_flops, hbm),
-                                                 mismatches)
+        cluster, cluster_entries = phase_cluster(out_dir, mismatches)
         print(f"  cluster phase {time.perf_counter() - t0:.1f} s",
               flush=True)
 
     # ---- phase 8: the MXU study's kernels
     print("phase 8: mxu", flush=True)
     t0 = time.perf_counter()
-    mxu, mxu_entries = phase_mxu((peak_flops, hbm), mismatches)
+    mxu, mxu_entries = phase_mxu(mismatches)
     print(f"  mxu phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- phase 9: the brute-force kernels and the routes
     print("phase 9: brute force", flush=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        brute, brute_entries = phase_brute(args.out or tmp,
-                                           (peak_flops, hbm), mismatches,
+        brute, brute_entries = phase_brute(args.out or tmp, mismatches,
                                            kept["band_1080p"])
     print(f"  brute phase {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -3926,7 +3716,7 @@ def main() -> None:
         entries.append(e)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries, "frame_ms": timed,
-                      "small_frames_agree": agree, "profile": profile,
+                      "small_frames_agree": agree,
                       "scenes": scenes, "oracles": oracles,
                       "sharding": sharding, "lbvh": lbvh,
                       "cluster": cluster, "mxu": mxu, "brute": brute,

@@ -2,10 +2,11 @@
 
 Same module layout and names as the JAX package (``config``, ``camera``,
 ``scene/``, ``ops/``, ``render/``, ``utils/``), written as plain functions
-on tensors with an explicit ``device``.  Every trace of the ReSTIR frame
-runs through the hand-written Hopper kernels in ``csrc/stream_trace.cu``
-(``ops/stream_trace.py`` builds and binds them); everything else is
-tensor code.
+on tensors with an explicit ``device``.  Each trace batch takes the route
+that the JAX package's dispatch decides (``ops/restir.py`` ``trace_mode``):
+the stream, brute-force, LBVH or cluster kernels, hand-written for Hopper
+in ``csrc/`` and built and bound by their ``ops/`` modules.  The TEA draws
+and the light pick run hand-written kernels too; the rest is tensor code.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU and no explicit CPU request they raise (``device.py``).

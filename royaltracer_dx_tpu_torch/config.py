@@ -16,9 +16,9 @@ REF_PI = 3.1415
 S_BIAS = 2.0e-5
 EPSILON = 1.0e-6
 
-# auto traversal threshold (config.py:23-28): the JAX package's CPU/XLA
-# dispatch sends scenes below this many triangles to brute force.  On the
-# card every batch takes the stream kernels (ops/restir.py).
+# auto traversal threshold (config.py:23-28): the JAX package's dispatch
+# sends scenes below this many triangles to brute force.  The port takes
+# the same decisions on every device (ops/restir.py ``trace_mode``).
 STREAM_AUTO_MIN_TRIS = 1500
 
 LUT_SIZE_THETA = 16

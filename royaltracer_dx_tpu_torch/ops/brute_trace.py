@@ -50,7 +50,6 @@ from royaltracer_dx_tpu_torch.ops.intersect import (
     as_planes3,
     closest_hit_brute,
 )
-from royaltracer_dx_tpu_torch.ops.stream_trace import MT_OPS
 from royaltracer_dx_tpu_torch.utils.cuda_build import build_library
 
 # the package build's plan constants (csrc/brute_trace.cu THREADS x RAYS,
@@ -66,11 +65,6 @@ ROUND_GROWTH = 4
 _N_COUNTERS, _MAX_ROUNDS = 8, 16
 # one launch count per kernel, bumped only where the kernel is launched
 LAUNCHES = {"brute_closest": 0, "brute_any": 0}
-# FP32 operations of a pair by the stage it reaches in the kernels' (and
-# the plain version's) order: p and det; 1 / det, o - v0 and u (|det| >
-# 1e-12); q, v and u + v (u >= 0); t (v >= 0 and u + v <= 1).  Their sum
-# is stream_trace.MT_OPS.
-STAGE_OPS = {"pairs": 14, "det": 10, "u": 16, "uv": 6}
 # what a launch's scratch holds first, a round: live rays, items taken
 # (items + grid), then the plan the main kernel chose and (any hit) the
 # end of the triangles its round took (csrc: C_LIVE ... C_HI)
@@ -516,27 +510,7 @@ def mt_stages(origins, dirs, t_min, t_max, tri_verts, tests=None,
         u_ok = det & (u >= 0.0)
         uv = u_ok & (v >= 0.0) & (u + v <= 1.0)
         counts += torch.stack([m.sum() for m in (tested, det, u_ok, uv)])
-    return dict(zip(STAGE_OPS, counts.tolist()))
-
-
-def brute_work(stages: dict, num_tris: int, n_rays: int,
-               closest: bool, live: int | None = None) -> dict:
-    """Bytes and FP32 operations of one brute_closest or brute_any call:
-    what the answer needs, whatever implements it.  Operations: each pair
-    of ``stages`` (``mt_stages``) counted up to the stage it reaches
-    (``STAGE_OPS``); ``all_stages_fp32_ops`` counts MT_OPS a pair.
-    Bytes: each of the ``n_rays`` rays read once (origin, direction,
-    t_min, t_max: 32 B), the triangles' nine planes once, and the outputs
-    written once (t, u, v and an int64 id; a byte of occlusion).
-    ``staged_bytes`` is what the kernels stage from L2: the planes once a
-    group of ``live`` listed rays (default all ``n_rays``; each item
-    stages its slice, a group's slices cover the triangles once)."""
-    groups = -(-(n_rays if live is None else live) // RAYS_PER_ITEM)
-    nbytes = n_rays * 32 + num_tris * 36 + n_rays * (20 if closest else 1)
-    ops = sum(STAGE_OPS[k] * stages[k] for k in STAGE_OPS)
-    return dict(bytes=nbytes, fp32_ops=ops,
-                all_stages_fp32_ops=stages["pairs"] * MT_OPS, **stages,
-                lanes=n_rays, staged_bytes=groups * num_tris * 36)
+    return dict(zip(("pairs", "det", "u", "uv"), counts.tolist()))
 
 
 def _as_f32(x):

@@ -57,9 +57,7 @@ the NaN-propagating min / max; (d) against a box with lo <= hi the
 slab's entry plane is lo or hi by the sign of the ray's inv alone
 (rounding is monotone), so the rays are listed by direction octant and
 each octant's near and far planes are picked once.  Other rays and boxes
-take the exact test.  ``cluster_work`` turns a
-call's per-tile stats (steps, and the triangle tests the answer needs)
-into the bytes and FP32 operations it needs.
+take the exact test.
 
 Hit convention (intersect.Hit, as in JAX): t = INF, tri = 0 and u = v = 0
 on a miss.
@@ -75,12 +73,7 @@ import torch
 
 from royaltracer_dx_tpu_torch.ops.bvh import morton_codes
 from royaltracer_dx_tpu_torch.ops.intersect import INF, Hit, as_planes3
-from royaltracer_dx_tpu_torch.ops.traverse import (
-    MT_OPS,
-    SLAB_OPS,
-    _rays,
-    pack_rays,
-)
+from royaltracer_dx_tpu_torch.ops.traverse import _rays, pack_rays
 from royaltracer_dx_tpu_torch.utils.cuda_build import build_library
 
 _DET_EPS = 1e-12
@@ -373,50 +366,6 @@ def _phase_b_group(rows, cl: Clusters, wl, went, count, tile: int,
         return occ.reshape(-1).to(torch.int32), stats
     tuv = torch.stack([best, bu, bv], dim=-1).reshape(-1, 3)
     return tuv, tri.reshape(-1), stats
-
-
-# -------------------------- the work of a call ---------------------------
-
-
-def cluster_work(rows: torch.Tensor, cl: Clusters, tile: int,
-                 stats: torch.Tensor | None = None,
-                 closest: bool = True) -> dict:
-    """Bytes and FP32 operations of one query's kernels, from their
-    inputs and the per-tile stats [tiles, 2] (steps, tests) the phase B
-    kernel (or its plain version) reported; ``fp32_ops`` counts only the
-    tests the answer needs, ``dense_fp32_ops`` every lane of a walking
-    tile.  ``stats=None``: phase A, ``cluster_mask``: every ray that can
-    overlap a box (t_min <= t_max; padding, NaN and t_max < t_min rays
-    cannot) against
-    every cluster box (24 operations a slab test; dense: every padded
-    ray), reading the rays and the boxes and writing the [tiles, C] mask
-    and entry.  With ``stats``: phase B, 52 operations a Moller-Trumbore
-    test (dense: tile x G a step the tile took); it reads the rays, the
-    worklist entries it took and the records (each at most once: the
-    lesser of all C records and one a step), and writes tuv and tri
-    (closest) or the flag (any); the stats are not the answer's."""
-    n_pad = rows.shape[0]
-    tiles = n_pad // tile
-    c, g = cl.num_clusters, cl.group
-    if stats is None:
-        live = int((rows[:, 6] <= rows[:, 7]).sum())
-        return dict(bytes=n_pad * 32 + c * 24 + tiles * c * 5,
-                    fp32_ops=live * c * SLAB_OPS,
-                    dense_fp32_ops=n_pad * c * SLAB_OPS, lanes=n_pad,
-                    live_lanes=live, tiles=tiles, clusters=c)
-    steps, tests = stats[:, 0], stats[:, 1]
-    total = int(steps.sum())
-    record = 9 * g * 4 + (g * 4 if closest else 0)
-    nbytes = (n_pad * 32 + total * 8 + tiles * 4
-              + min(c, total) * record
-              + n_pad * (16 if closest else 4))
-    return dict(bytes=nbytes, fp32_ops=int(tests.sum()) * MT_OPS,
-                dense_fp32_ops=total * tile * g * MT_OPS,
-                lanes=n_pad, tiles=tiles, steps=total,
-                tests=int(tests.sum()),
-                live_tiles=int((steps > 0).sum()),
-                steps_per_tile=total / max(tiles, 1),
-                max_steps=int(steps.max()) if tiles else 0)
 
 
 # ----------------------------- CUDA build --------------------------------

@@ -280,71 +280,6 @@ def _candidates_plain(origins, dirs, t_min, t_max, coeff, center, num_tris):
                 safe=safe, live=live)
 
 
-# -------------------------- the work of a call ---------------------------
-
-# FP32 operations per (ray, triangle) pair, counted from the plain
-# version: the four sums (18 multiplies, 15 adds) and the decision's 11
-# multiplies and subtracts; compares, selects and the division of an
-# accepted pair are not counted
-PAIR_OPS = 44
-# per ray: re-centring and the cross product (12); closest adds the
-# winner's products again, its reciprocal, the +0.0 folds and u, v (32)
-RAY_OPS, CLOSEST_RAY_OPS = 12, 32
-NONZERO_COEFFS = sum(len(r) for r in PLANE_ROWS)        # 19
-
-
-# the tensor-core yardstick: the work the kernels' filter does on the
-# tensor cores, the det, a and b sums' 15 multiply-adds a pair in one TF32
-# pass (30 operations), at the TF32 peak, beside the decision's 11 FP32
-# operations a pair (and the per-ray ones) at the FP32 peak, the two
-# pipes side by side
-TF32_PAIR_OPS = 2 * sum(len(r) for r in PLANE_ROWS[:3])   # 30
-DECISION_OPS = 11    # PAIR_OPS less the four sums' 33
-TF32_PEAK = 495e12   # H100 SXM, dense (NVIDIA's data sheet)
-
-
-def mxu_work(n_rays: int, tris: MxuTris, live=None, tests=None,
-             closest: bool = True) -> dict:
-    """Bytes and operations of one closest_hit_mxu / any_hit_mxu call.
-    ``dense_fp32_ops`` counts every (ray, padded triangle) pair, the JAX
-    package's product; ``fp32_ops`` what this call's data needs in the
-    plain order: closest, every live ray (t_min < t_max; ``live`` rays,
-    all if None) against every real triangle; any hit, the ``tests`` the
-    kernel's order needs (its stats build, as ``_any_plain`` counts them;
-    every live pair if None).  The tensor-core form of the same pairs:
-    ``tf32_ops`` for the filter's det, a and b sums, ``decision_fp32_ops``
-    for the rest.
-    Bytes: each ray read once (origin, direction, t_min, t_max: 32 B),
-    the 19 nonzero coefficients of each padded triangle and the centre,
-    and the outputs written once (t, u, v and an int64 triangle id; a
-    byte of occlusion)."""
-    live = n_rays if live is None else int(live)
-    tp, t = tris.padded, tris.num_tris
-    pairs = live * t if tests is None or closest else int(tests)
-    per_ray = RAY_OPS + (CLOSEST_RAY_OPS if closest else 0)
-    nbytes = (n_rays * 32 + tp * NONZERO_COEFFS * 4 + 12
-              + n_rays * (20 if closest else 1))
-    return dict(bytes=nbytes, fp32_ops=pairs * PAIR_OPS + live * per_ray,
-                tf32_ops=pairs * TF32_PAIR_OPS,
-                decision_fp32_ops=pairs * DECISION_OPS + live * per_ray,
-                dense_fp32_ops=n_rays * (tp * PAIR_OPS + per_ray),
-                pairs=pairs, dense_pairs=n_rays * tp, lanes=n_rays,
-                live_lanes=live)
-
-
-def tc_bound_ms(work: dict, peak_flops: float, hbm: float) -> dict:
-    """The tensor-core bound of ``mxu_work``: the larger of the bytes over
-    the memory rate, the sums' TF32 operations over ``TF32_PEAK`` and the
-    decision's FP32 operations over ``peak_flops`` (the pipes run side by
-    side)."""
-    parts = {"bytes": work["bytes"] / hbm * 1e3,
-             "tf32": work["tf32_ops"] / TF32_PEAK * 1e3,
-             "fp32": work["decision_fp32_ops"] / peak_flops * 1e3}
-    by = max(parts, key=parts.get)
-    return dict(tc_bound_ms=parts[by], tc_bound_by=by,
-                tc_tf32_ms=parts["tf32"], tc_fp32_ms=parts["fp32"])
-
-
 # ----------------------------- CUDA build --------------------------------
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc",

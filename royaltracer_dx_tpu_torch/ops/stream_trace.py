@@ -37,9 +37,7 @@ visited blocks of the clusters whose box the ray's own slab test
 passed).  Every call also adds its stats, summed over the chunks, to the
 telemetry's stream counter on its device (utils/telemetry.py): the
 kernels with one atomicAdd a column from each chunk that walked, the
-plain version with a torch sum.  ``stream_work`` turns them into the
-bytes and FP32 operations a call needs whatever implements it, and
-``bound_ms`` into the least time a card could take for them.
+plain version with a torch sum.
 """
 
 from __future__ import annotations
@@ -530,76 +528,6 @@ def _plain_group(rows, wl, went, cnt, blk_tris, blk_boxes, occlusion: bool):
     tuv = torch.stack([tbest, bu, bv], dim=-1).reshape(n_pad, 3)
     return (tuv, slot.reshape(n_pad).to(torch.int32),
             stats.to(torch.int32))
-
-
-# -------------------------- the work of a call ---------------------------
-
-# FP32 operations per Moller-Trumbore test and per ray x cluster-box slab
-# test, counted from the plain version: adds, subtracts, multiplies, the
-# one division and the slab's min/max; compares and selects are not counted
-MT_OPS = 46
-SLAB_OPS = 24
-
-
-def stream_work(rows, wl, went, cnt, blk_tris, blk_boxes, stats) -> dict:
-    """Bytes and FP32 operations one stream_closest / stream_any call
-    needs, from its inputs and its per-chunk stats: the same numbers for
-    any implementation that gives the same answers.
-
-    Operations: every ray-cluster candidate pair (stats column 2) costs
-    G Moller-Trumbore tests, and every valid ray costs S slab tests in
-    each block its chunk visited (column 0).  Rays whose slab test
-    rejected a cluster, and invalid lanes, need nothing.
-
-    Bytes: what the function reads, once, and what it writes, once.  Of a
-    row that is its 9 used floats (columns 9-15 are padding); of the
-    worklists, the ``cnt`` entries of each chunk; of the accel, the
-    smaller of the whole of it (its 32 real boxes a block) and one
-    768-byte box set per visited block plus one 2,304-byte tile per
-    tested cluster; and the outputs tuv, slot and stats."""
-    n_pad = rows.shape[0]
-    chunks = n_pad // RAYS_PER_CHUNK
-    valid = (rows[:, 8] > 0.5).reshape(chunks, RAYS_PER_CHUNK).sum(dim=1)
-    pairs = int(stats[:, 2].sum())
-    ray_blocks = int((valid * stats[:, 0]).sum())
-    blocks_visited = int(stats[:, 0].sum())
-    clusters_tested = int(stats[:, 1].sum())
-    tile, boxes = 9 * G * 4, 6 * S * 4
-    accel = min(blk_tris.shape[0] * (S * tile + boxes),
-                clusters_tested * tile + blocks_visited * boxes)
-    nbytes = (n_pad * 9 * 4 + int(cnt.sum()) * (4 + 4) + chunks * 4 + accel
-              + n_pad * (3 * 4 + 4) + chunks * 3 * 4)
-    return dict(bytes=nbytes,
-                fp32_ops=pairs * G * MT_OPS + ray_blocks * S * SLAB_OPS,
-                pairs=pairs, ray_blocks=ray_blocks,
-                blocks_visited=blocks_visited,
-                clusters_tested=clusters_tested,
-                valid_lanes=int(valid.sum()))
-
-
-# H100 device-memory rate (NVIDIA data sheet), bytes per second
-_HBM_SXM, _HBM_PCIE = 3.35e12, 2.0e12
-
-
-def card_rates(name: str, sm_count: int, sm_clock_mhz: float):
-    """(FP32 operations per second, device-memory bytes per second) of
-    an H100: 128 lanes x 2 operations (one FMA) per SM and clock at the
-    card's maximum SM clock, and the data sheet's memory rate."""
-    return (sm_count * 128 * 2 * sm_clock_mhz * 1e6,
-            _HBM_PCIE if "PCIe" in name else _HBM_SXM)
-
-
-def bound_ms(work: dict, peak_flops: float, hbm: float) -> dict:
-    """The least time a card could take for a call's work (``stream_work``):
-    the larger of its bytes over the memory rate and its operations over
-    the FP32 peak.  ``nofma_floor_ms`` is the operations at one per lane
-    per clock, half the peak's two: what a build without FMA contraction
-    can reach."""
-    t_bytes = work["bytes"] / hbm * 1e3
-    t_ops = work["fp32_ops"] / peak_flops * 1e3
-    return dict(bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                bytes_ms=t_bytes, ops_ms=t_ops, nofma_floor_ms=2.0 * t_ops)
 
 
 # ----------------------------- CUDA build --------------------------------

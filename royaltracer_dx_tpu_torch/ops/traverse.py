@@ -28,9 +28,7 @@ for CUDA tensors they launch the kernel (or raise), for CPU tensors they
 run the plain version.  A lane's answer depends on that lane alone, so
 the kernels walk one ray per thread, on persistent warps that take rays
 from a counter in the wrapper's zeroed scratch and walk only live lanes
-(the kernel's header note has the design).  ``bvh_work`` turns a call's
-per-lane walk counts into the bytes and FP32 operations it needs, for
-``stream_trace.bound_ms``.
+(the kernel's header note has the design).
 
 Hit convention (intersect.Hit, as in JAX): t = INF and tri = 0 on a miss;
 tri = perm[slot] of the winning slot; u, v of the winning lane.
@@ -310,16 +308,7 @@ def _any_plain(rays: torch.Tensor, bvh: LBVH):
     return occ.to(torch.int32), stats.to(torch.int32)
 
 
-# -------------------------- the work of a call ---------------------------
-
-# FP32 operations per slab test (3 x (2 subtracts, 2 multiplies, a min and
-# a max) and the 3-way max and min with t_min / t_max) and per triangle
-# test (2 edges, 2 cross products, 4 dot products, 1/det, 3 multiplies by
-# it and u + v), counted from the code; compares and selects are not
-# counted
-SLAB_OPS = 24
-MT_OPS = 52
-
+# ------------------------- the root scan's tests -------------------------
 
 def top_scan_tests(rays: torch.Tensor, bvh: LBVH,
                    chunk: int = 1 << 17) -> torch.Tensor:
@@ -355,41 +344,6 @@ def top_scan_tests(rays: torch.Tensor, bvh: LBVH,
             k *= 2
         out[ln] = torch.clamp_max(count, s)
     return out
-
-
-def bvh_work(rays: torch.Tensor, bvh: LBVH, stats: torch.Tensor,
-             closest: bool) -> dict:
-    """Bytes and FP32 operations one bvh_closest / bvh_any call needs,
-    from its inputs and the per-lane stats the kernel wrote.
-
-    Bytes: 32 B of ray read and 16 B (closest: t, u, v, tri) or 4 B (any:
-    the flag) written per lane, plus the tree read once (node rows,
-    triangles and, for closest, perm).  Operations: the walk's node slab
-    tests and triangle tests from the stats and, for closest, the slab
-    tests of one root scan (``top_scan_tests``); lanes that cannot hit
-    need nothing.  ``dense_top_fp32_ops`` counts S root tests a live
-    closest lane instead, the yardstick of the first LBVH kernels'
-    measurements, kept to compare with them."""
-    n = rays.shape[0]
-    p, ls = bvh.num_leaves, bvh.leaf_size
-    s, _ = _top_level(p)
-    tree = bvh.nodes.numel() * 4 + bvh.sorted_tris.numel() * 4
-    if closest:
-        tree += bvh.perm.numel() * 4
-    node_tests = int(stats[:, 0].sum())
-    tri_tests = int(stats[:, 1].sum())
-    live = int((rays[:, 7] > rays[:, 6]).sum())
-    top = int(top_scan_tests(rays, bvh).sum()) if closest else 0
-    dense = live * s if closest else 0
-    return dict(bytes=n * 32 + n * (16 if closest else 4) + tree,
-                fp32_ops=(top + node_tests) * SLAB_OPS + tri_tests * MT_OPS,
-                dense_top_fp32_ops=((dense + node_tests) * SLAB_OPS
-                                    + tri_tests * MT_OPS),
-                lanes=n, live_lanes=live, top_tests=top,
-                node_tests=node_tests, tri_tests=tri_tests,
-                roots=int(stats[:, 2].sum()),
-                nodes_per_lane=node_tests / max(n, 1),
-                tris_per_lane=tri_tests / max(n, 1))
 
 
 # ----------------------------- CUDA build --------------------------------

@@ -1,1 +1,1 @@
-"""Measurement scripts of the port (run on a machine with an NVIDIA GPU)."""
+"""Seeded adversarial inputs for the card tests and ``chip_smoke.py``."""

@@ -240,26 +240,6 @@ def test_brute_cases_consistent(case):
         assert int(occ.sum()) > 10
 
 
-def test_brute_work_counts():
-    """Each pair counted to the stage it reaches: 14 + 10 + 16 + 6 =
-    MT_OPS for a pair that computes t."""
-    assert sum(tbt.STAGE_OPS.values()) == tst.MT_OPS
-    stages = dict(pairs=32_000, det=20_000, u=9_000, uv=2_000)
-    w = tbt.brute_work(stages, 32, 1536, closest=True)
-    assert w["fp32_ops"] == (32_000 * 14 + 20_000 * 10 + 9_000 * 16
-                             + 2_000 * 6)
-    assert w["all_stages_fp32_ops"] == 32_000 * tst.MT_OPS
-    assert w["bytes"] == 1536 * 32 + 32 * 36 + 1536 * 20
-    # the planes once a group of 1,024 listed rays
-    assert w["staged_bytes"] == 2 * 32 * 36
-    assert tbt.brute_work(stages, 32, 1536, closest=True,
-                          live=100)["staged_bytes"] == 32 * 36
-    a = tbt.brute_work(dict(pairs=5_000, det=5_000, u=5_000, uv=5_000), 32,
-                       1536, closest=False)
-    assert a["fp32_ops"] == 5_000 * tst.MT_OPS
-    assert a["bytes"] == 1536 * 32 + 32 * 36 + 1536
-
-
 @pytest.mark.parametrize("kind", ["closest", "any"])
 def test_mt_stages_scalar_model(kind):
     """``mt_stages`` against a scalar walk over the pairs in float32, in

@@ -244,38 +244,6 @@ def test_walk_skips_padding():
     assert int(empty.sum()) > 0
 
 
-def test_bvh_work_counts():
-    """The work of a call from its walk counts: bytes are the rays, the
-    outputs and the tree; operations one root scan of each live closest
-    lane (``top_scan_tests``: at most S a lane), the node slab tests and
-    the triangle tests; ``dense_top_fp32_ops`` counts S root tests a
-    live closest lane instead."""
-    tris, o, d, t_min, t_max = _rays("soup", n=512)
-    _, tb = _both(tris, 4)
-    rays = ttr.pack_rays(torch.as_tensor(o), torch.as_tensor(d),
-                         torch.as_tensor(t_min), torch.as_tensor(t_max))
-    _, _, st = ttr.bvh_closest(rays, tb, stats=True)
-    w = ttr.bvh_work(rays, tb, st, closest=True)
-    p = tb.num_leaves
-    tree = 2 * p * 6 * 4 + p * 4 * 9 * 4 + p * 4 * 4
-    assert w["bytes"] == 512 * 48 + tree
-    live = int((t_max > t_min).sum())
-    assert w["live_lanes"] == live == 448
-    top = ttr.top_scan_tests(rays, tb)
-    assert w["top_tests"] == int(top.sum())
-    assert int(top[~torch.as_tensor(t_max > t_min)].abs().sum()) == 0
-    assert 0 < w["top_tests"] < live * min(256, p)
-    assert w["fp32_ops"] == ((w["top_tests"] + w["node_tests"])
-                             * ttr.SLAB_OPS + w["tri_tests"] * ttr.MT_OPS)
-    assert w["dense_top_fp32_ops"] == (
-        (live * min(256, p) + w["node_tests"]) * ttr.SLAB_OPS
-        + w["tri_tests"] * ttr.MT_OPS)
-    assert w["tri_tests"] % 4 == 0 and w["node_tests"] >= w["tri_tests"] // 4
-    occ, st_a = ttr.bvh_any(rays, tb, stats=True)
-    wa = ttr.bvh_work(rays, tb, st_a, closest=False)
-    assert wa["bytes"] == 512 * 36 + tree - p * 4 * 4
-
-
 # ------------------------------ scenes and frames ---------------------------
 
 

@@ -308,10 +308,9 @@ def test_model_walk_matches_plain(name, cap):
 @pytest.mark.parametrize("name", ["soup64", "soup1024", "ties", "axis",
                                   "edges"])
 def test_top_scan_tests_count_one_scan(name):
-    """``traverse.top_scan_tests``, which the bound counts, is the model's
-    first root scan of a live lane (t_max > t_min) capped at S, S above
-    t_max 1e30 and 0 on a dead lane: the kernel's scans make at least
-    that many slab tests."""
+    """``traverse.top_scan_tests`` is the model's first root scan of a
+    live lane (t_max > t_min) capped at S, S above t_max 1e30 and 0 on a
+    dead lane: the kernel's scans make at least that many slab tests."""
     tris, rays, ls = bvh_order_case(name)
     bvh = tbvh.build_lbvh(torch.as_tensor(tris), leaf_size=ls)
     s = min(256, bvh.num_leaves)

@@ -5,7 +5,7 @@ order, the finite rays grouped by direction octant and tested against
 their octant's near and far planes with fmaxf / fminf), held on the CPU
 by the plain version (ops/cluster_traverse.py::_mask_plain, what the
 kernel equals bit for bit on the card) and the JAX package, on
-``cluster_study.mask_case``'s adversarial tiles:
+``cluster_cases.mask_case``'s adversarial tiles:
 
   (a) a ray with !(t_min <= t_max), NaN included, overlaps no box: the
       tables do not change when such rays become padding rows, while a ray
@@ -32,7 +32,7 @@ import torch
 from royaltracer_dx_tpu.ops import cluster_traverse as jct
 from royaltracer_dx_tpu_torch.ops import cluster_traverse as tct
 from royaltracer_dx_tpu_torch.ops.intersect import INF
-from royaltracer_dx_tpu_torch.tools.cluster_study import mask_case
+from royaltracer_dx_tpu_torch.tools.cluster_cases import mask_case
 from test_torch_restir import one_torch_thread  # noqa: F401 (autouse)
 
 # (rays a tile, clusters): one box, menger's 38 and sponza's 2,073 (a

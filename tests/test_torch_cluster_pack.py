@@ -24,7 +24,7 @@ import torch
 
 from royaltracer_dx_tpu.ops import cluster_traverse as jct
 from royaltracer_dx_tpu_torch.ops import cluster_traverse as tct
-from royaltracer_dx_tpu_torch.tools import cluster_study
+from royaltracer_dx_tpu_torch.tools import cluster_cases
 from test_torch_cluster import _both, _menger
 from test_torch_restir import one_torch_thread  # noqa: F401 (autouse)
 
@@ -270,19 +270,19 @@ def test_team_reductions_give_the_first_slot(g):
 
 @pytest.mark.parametrize("tile", [32, 24])
 def test_pack_case_tiles_do_what_they_claim(tile):
-    """``cluster_study.pack_case`` (the card tests' and chip_smoke.py's
+    """``cluster_cases.pack_case`` (the card tests' and chip_smoke.py's
     adversarial tiles) at a small size: every packing width's live count,
     and in the plain version the tiles without a live ray counting their
     steps without tests (the whole list, or none for a NaN), the all-hit
     tiles stopping before the end of their list in any hit, and exact-t
     ties between the twin triangles (the card holds the kernels to the
     plain version on them)."""
-    rows, cl, kinds = cluster_study.pack_case("cpu", tile, 32, reps=2)
+    rows, cl, kinds = cluster_cases.pack_case("cpu", tile, 32, reps=2)
     kinds = np.asarray(kinds)
     live = (rows[:, 6] < rows[:, 7]).reshape(-1, tile).sum(dim=1).numpy()
-    widths = [w for k, w in cluster_study.pack_kinds(tile) for _ in range(2)]
+    widths = [w for k, w in cluster_cases.pack_kinds(tile) for _ in range(2)]
     np.testing.assert_array_equal(live, widths)
-    assert set(cluster_study.pack_widths(tile)) == {0, 1, 31, 32, 33,
+    assert set(cluster_cases.pack_widths(tile)) == {0, 1, 31, 32, 33,
                                                     tile - 1, tile} & set(
         range(tile + 1))
     wl, went, count = tct.tile_worklists(rows, cl, tile)

@@ -465,7 +465,7 @@ def test_cuda_bvh_kernel_matches_plain(case, occlusion):
     name = "bvh_any" if occlusion else "bvh_closest"
     before = ttr.LAUNCHES[name]
     if occlusion:
-        k_occ, k_st = ttr.bvh_any(rays, b, stats=True)
+        k_occ, _ = ttr.bvh_any(rays, b, stats=True)
         torch.cuda.synchronize()
         p_occ, _ = ttr._any_plain(rays, b)
         assert torch.equal(k_occ, p_occ)
@@ -480,8 +480,6 @@ def test_cuda_bvh_kernel_matches_plain(case, occlusion):
         assert torch.equal(k_st, p_st)
         assert int((k_tuv[:, 0] < 1e29).sum()) > 0
     assert ttr.LAUNCHES[name] == before + 1
-    work = ttr.bvh_work(rays, b, k_st, not occlusion)
-    assert work["node_tests"] > 0 and work["bytes"] > 0
 
 
 @pytest.mark.gpu
@@ -491,7 +489,7 @@ def test_cuda_bvh_kernels_match_plain_beyond_one_wave():
     lane dead: both kernels against their plain versions on a strided
     sample of 11,000 lanes, the closest kernel's stats included, and the
     top-level slab tests of the closest kernel's root scans: at least the
-    ones the bound counts (``top_scan_tests``), and one a live lane."""
+    ones one scan needs (``top_scan_tests``), and one a live lane."""
     from royaltracer_dx_tpu_torch.ops import bvh as tbvh
 
     dev = _card()
@@ -658,7 +656,7 @@ def _bits(x):
     (128, 128, 2), (128, 1, 1), (128, 100, 2), (128, 1024, 2), (96, 128, 2),
     (1024, 128, 2), (1024, 1024, 2)])
 def test_cuda_cluster_packing_matches_plain(tile, group, level):
-    """cluster_closest and cluster_any on ``cluster_study.pack_case``'s
+    """cluster_closest and cluster_any on ``cluster_cases.pack_case``'s
     adversarial tiles (every packing width of live rays from 0 to the
     tile, dead rays whose t_max decides the bound, a NaN t_max, tiles
     without a live ray that overlap boxes, exact-t ties within and across
@@ -667,7 +665,7 @@ def test_cuda_cluster_packing_matches_plain(tile, group, level):
     without stats.  The tiles without a live ray count their steps
     without testing: the ones whose dead rays reach 1e4 walk their whole
     list, the NaN tiles none."""
-    from royaltracer_dx_tpu_torch.tools.cluster_study import pack_case
+    from royaltracer_dx_tpu_torch.tools.cluster_cases import pack_case
 
     dev = _card()
     rows, cl, kinds = pack_case(dev, tile, group, level)
@@ -703,13 +701,13 @@ def test_cuda_cluster_packing_matches_plain(tile, group, level):
 @pytest.mark.parametrize("c", [1, 38, 2073])
 @pytest.mark.parametrize("tile", [96, 128, 1024])
 def test_cuda_cluster_mask_matches_plain(tile, c):
-    """cluster_mask on ``cluster_study.mask_case``'s adversarial tiles
+    """cluster_mask on ``cluster_cases.mask_case``'s adversarial tiles
     (every live count from 0 to the tile, dead rays of every kind, equal
     bounds, -0.0 entries, rays on box faces, zero, tiny, huge and
     non-finite components, non-finite boxes), repeated beyond one wave of
     CTAs, against ``_mask_plain``: mask and entry bit for bit, one launch
     counted."""
-    from royaltracer_dx_tpu_torch.tools.cluster_study import mask_case
+    from royaltracer_dx_tpu_torch.tools.cluster_cases import mask_case
 
     dev = _card()
     reps = max(1, 4096 // (tile + 4))

@@ -462,23 +462,3 @@ def test_tf32_rounds_to_nearest_ties_away():
     assert got.tolist() == want
     assert torch.signbit(got[5])
     assert not (got.view(torch.int32) & 0x1FFF).any()
-
-
-def test_mxu_work_tensor_core_bound():
-    """mxu_work's two yardsticks: 44 FP32 operations a pair in the plain
-    order; on tensor cores the filter's det, a and b sums in one TF32 pass
-    (30 operations a pair) at 495 TFLOP/s beside the decision's 11 FP32
-    operations a pair, which bind."""
-    mt = tmx.build_mxu_tris(t_(random_soup(200)))
-    w = tmx.mxu_work(100_000, mt, live=60_000)
-    pairs = 60_000 * 200
-    assert w["pairs"] == pairs
-    assert w["fp32_ops"] == pairs * 44 + 60_000 * (12 + 32)
-    assert w["tf32_ops"] == pairs * 30
-    assert w["decision_fp32_ops"] == pairs * 11 + 60_000 * (12 + 32)
-    b = tmx.tc_bound_ms(w, 66.9e12, 3.35e12)
-    # 1.64e-13 s a pair against 6.1e-14 (TF32) and 52 B a ray (bytes)
-    assert b["tc_bound_by"] == "fp32"
-    assert b["tc_tf32_ms"] == pytest.approx(pairs * 30 / 495e12 * 1e3)
-    assert b["tc_bound_ms"] == b["tc_fp32_ms"] == pytest.approx(
-        w["decision_fp32_ops"] / 66.9e12 * 1e3)

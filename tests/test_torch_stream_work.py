@@ -1,5 +1,5 @@
-"""The stream kernels' third stat, the work count built on it, and the
-plain version on sparse and ragged batches.
+"""The stream kernels' third stat and the plain version on sparse and
+ragged batches.
 
 The plain PyTorch version is what the CUDA kernels are held to on the
 card, so it is held here to independent counts and to brute force on the
@@ -123,64 +123,6 @@ def test_third_stat_equals_numpy_pair_count():
     # (dead lanes, t_max < t_min, read as the t=0 encoding: any_hit_stream
     # masks them by liveness)
     assert (slot0[rows[:, 7] > rows[:, 6]] == -1).all()
-
-
-def test_stream_work_hand_count():
-    _, ta, args = hand_case()
-    rows, wl, went, cnt = args[:4]
-    _, _, stats = tst.stream_closest(*args)
-    work = tst.stream_work(*args, stats)
-    s = stats.numpy().astype(np.int64)
-    valid = (rows.numpy()[:, 8] > 0.5).reshape(3, R).sum(axis=1)
-    assert valid.tolist() == [85, 85, 30]      # 2 of 3 of 128, 128 and 44
-    ray_blocks = int((valid * s[:, 0]).sum())
-    pairs = int(s[:, 2].sum())
-    assert work["pairs"] == pairs and work["ray_blocks"] == ray_blocks
-    assert work["fp32_ops"] == pairs * 64 * 46 + ray_blocks * 32 * 24
-    # read: 9 floats of each of 384 rows, each chunk's cnt worklist
-    # entries (block id and entry bound), 3 cnt, and of the 2-block accel
-    # the smaller of all of it (32 tiles of 9x64 floats and 32 boxes of 6
-    # floats a block) and a box set per visited block plus a tile per
-    # tested cluster; written: tuv 384x3, slot 384, stats 3x3; 4 B each
-    entries = int(cnt.sum())
-    assert 3 <= entries <= 6 and wl.shape[1] == 16
-    accel = min(2 * (32 * 9 * 64 + 32 * 6),
-                int(s[:, 0].sum()) * 32 * 6 + int(s[:, 1].sum()) * 9 * 64)
-    want_bytes = 4 * (384 * 9 + 2 * entries + 3 + accel
-                      + 384 * 3 + 384 + 3 * 3)
-    assert work["bytes"] == want_bytes
-    # padding and unused entries are not needed work: fewer bytes than
-    # the tensors hold
-    held = sum(t.numel() * 4 for t in (*args, stats)) + 384 * 16
-    assert want_bytes < held
-    # a batch too small to touch every tile is charged the tiles it tested
-    one = tst.stream_work(rows[:R], wl[:1], went[:1], cnt[:1], *args[4:],
-                          stats[:1])
-    assert one["bytes"] == 4 * (128 * 9 + 2 * int(cnt[0]) + 1
-                                + int(s[0, 0]) * 32 * 6
-                                + int(s[0, 1]) * 9 * 64
-                                + 128 * 3 + 128 + 3)
-    assert work["valid_lanes"] == 200
-    assert work["blocks_visited"] == int(s[:, 0].sum())
-    assert work["clusters_tested"] == int(s[:, 1].sum())
-    # the count does not depend on how many lanes share a chunk with a
-    # candidate: it is below clusters x 128 lanes x 64 triangles
-    assert pairs * 64 < work["clusters_tested"] * R * 64
-
-
-def test_bound_is_larger_of_bytes_and_operations():
-    peak, hbm = tst.card_rates("NVIDIA H100 80GB HBM3", 132, 1980.0)
-    assert peak == 132 * 128 * 2 * 1980e6 and hbm == 3.35e12
-    assert tst.card_rates("NVIDIA H100 PCIe", 114, 1755.0)[1] == 2.0e12
-    b = tst.bound_ms(dict(bytes=3.35e9, fp32_ops=peak * 5e-4), peak, hbm)
-    assert b["bound_by"] == "bytes"
-    np.testing.assert_allclose(
-        [b["bound_ms"], b["bytes_ms"], b["ops_ms"], b["nofma_floor_ms"]],
-        [1.0, 1.0, 0.5, 1.0], rtol=1e-12)
-    b = tst.bound_ms(dict(bytes=3.35e8, fp32_ops=peak * 5e-4), peak, hbm)
-    assert b["bound_by"] == "operations"
-    np.testing.assert_allclose([b["bound_ms"], b["nofma_floor_ms"]],
-                               [0.5, 1.0], rtol=1e-12)
 
 
 def _sparse_cases():
